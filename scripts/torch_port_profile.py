@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's serving time goes on one NVIDIA GPU.
+
+    python3 scripts/torch_port_profile.py [--batch 8] [--requests 3]
+
+Builds the serving CSModel at the default widths (320 x 320, 1 coil, 4x
+equispaced) with the synthetic weights and phantoms of chip_smoke.py,
+warms it up, then profiles `--requests` reconstruct calls with
+torch.profiler and prints: slices/s, the device time by the category of
+the aten op that launched it, the top ops and kernels, and the device's
+idle share of the profiled window (one minus the union of kernel
+intervals over the window). Needs a card.
+"""
+
+import argparse
+import collections
+import os
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+OP_CATEGORIES = (  # first match wins, on the lower-cased aten op name
+    ("conv", ("conv",)),
+    ("fft", ("fft",)),
+    ("norm/reduce", ("var_mean", "batch_norm", "sum", "mean", "norm")),
+    ("copy", ("copy", "to", "fill", "zero", "cat", "pad", "roll")),
+)
+
+
+def op_category(name):
+    low = name.lower()
+    for cat, keys in OP_CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "elementwise/other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=3)
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA card available")
+    print(f"card: {chip_smoke.nvidia_smi()}", flush=True)
+    rng = np.random.default_rng(0)
+    cfg = chip_smoke.serving_cfg()
+    model = CSModel(cfg=cfg, device="cuda", seed=0)
+    model.load_entries(chip_smoke.random_entries(model, rng))
+    reqs = [chip_smoke.phantoms(rng, args.batch, cfg.shape)
+            for _ in range(args.requests)]
+    for full, aux in reqs[:2]:
+        model.reconstruct(full, aux)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for full, aux in reqs:
+            model.reconstruct(full, aux)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = max(e.time_range.end for e in prof.events()) - min(
+        e.time_range.start for e in prof.events())
+
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    total = sum(us for us, _ in by_name.values())
+    # device time by the aten op that launched it; kernels launched outside
+    # any aten op (the port's ctypes kernels) stay unattributed
+    by_cat = collections.Counter()
+    for avg in prof.key_averages():
+        if avg.key.startswith("aten::"):  # kernel rows would count twice
+            by_cat[op_category(avg.key[len("aten::"):])] += avg.self_device_time_total
+    by_cat["(no aten op: ctypes kernels)"] = total - sum(by_cat.values())
+    n_slices = args.batch * args.requests
+    print(f"{args.requests} requests x {args.batch} slices in {wall * 1e3:.1f} ms "
+          f"host wall under the profiler: {n_slices / wall:.2f} slices/s")
+    print(f"device kernel time {total / 1e3:.2f} ms "
+          f"({total / 1e3 / n_slices:.3f} ms/slice); device busy "
+          f"{busy / 1e3:.2f} ms of a {window / 1e3:.2f} ms window: idle share "
+          f"{1 - busy / window:.3f}")
+    print("device time by launching op category:")
+    for cat, us in by_cat.most_common():
+        print(f"  {cat:30s} {us / 1e3:9.3f} ms  {us / total:6.1%}")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20,
+                                    max_name_column_width=60))
+    print("top kernels (device ms, launches):")
+    for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / 1e3:9.3f} {cnt:6d}  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

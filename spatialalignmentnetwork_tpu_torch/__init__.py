@@ -1,0 +1,19 @@
+"""spatialalignmentnetwork_tpu_torch — PyTorch/CUDA port of the
+spatial-alignment-assisted MRI reconstruction system, for NVIDIA Hopper.
+
+The JAX package `spatialalignmentnetwork_tpu` is the reference; this
+package mirrors its module layout so each counterpart is easy to find, and
+imports none of it (nor JAX). Plain tensor code is PyTorch; every Pallas
+TPU kernel on a ported path is a hand-written CUDA kernel under `csrc/`,
+built at first use and bound through `kernels/`.
+
+Layout:
+    ops/       fft/rss, k-space masks, grid sampling
+    models/    VarNet + NormUnet, spatial transformer, LibUNet
+    kernels/   ctypes bindings of the CUDA kernels, launch counts
+    csrc/      CUDA C++ sources (sm_90a)
+    engine/    Config, checkpoint reading, weight carry-over from the JAX
+               package's checkpoints, the serving CSModel
+"""
+
+__version__ = "0.1.0"
