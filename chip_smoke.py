@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -8,18 +9,31 @@ imports nothing of JAX or of the JAX package. Phases, each fatal on
 failure:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the path from csrc/, all at once;
+  2. build every CUDA kernel of the paths from csrc/, one nvcc per source,
+     all at once;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes serving gives it and more (all padding modes, f32 and bf16,
-     grids with out-of-range coordinates), then its time beside its plain
-     version, the one-call PyTorch equivalent (a yardstick the port never
+     shapes the paths give it and more (all padding modes, C = 2, a
+     non-square plane, the smallest SSIM plane, grids with out-of-range
+     coordinates), then its time beside its plain version, the one-call
+     PyTorch equivalent where there is one (a yardstick the port never
      calls) and its bound on an H100 SXM;
   4. full-width serving: `CSModel` at the default widths (320 x 320, 1
      coil, 4x equispaced), weights made from a numpy seed in the JAX
      package's checkpoint layout and carried over by `engine/from_jax`,
      synthetic phantoms in batches of 8; launch counts reset just before
      and read just after; slice 0 held against the same port on the CPU;
-     slices/s from CUDA events and the peak device memory.
+     slices/s from CUDA events and the peak device memory;
+  5. the Rec train step at full width, batch 4: 2 warm-up and 3 timed
+     `update()`s, launch counts reset just before and read just after
+     (one grid_sample forward, one d_grid, one SSIM forward and backward a
+     step, no d_img), every loss finite, net_T moved and reached by the
+     warp's gradient; ms per step, slices/s, peak device memory;
+  6. autograd on the card against the CPU: ssimloss(target, warp(img,
+     grid)) with both img and grid learnable, the path that launches the
+     d_img kernel;
+  7. one train step on the card against the same step on the CPU: the
+     losses, and every parameter's gradient held to the same step in
+     float64 on the CPU.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -42,10 +56,31 @@ SHAPE = 320
 BATCH = 8
 WARMUP_REQUESTS = 2
 TIMED_REQUESTS = 5
+TRAIN_BATCH = 4
+WARMUP_STEPS = 2
+TIMED_STEPS = 3
 F32_ATOL = 1e-5  # kernel vs plain at f32: same arithmetic, rounding order only
 BF16_RTOL = 2.0**-7  # one bf16 ulp: both round one f32 sum to bf16
 SERVE_RTOL = 1e-3  # card vs CPU, end to end (cuDNN/cuFFT vs CPU sum order)
 SERVE_ATOL_REL = 1e-4  # ... atol as a fraction of max |CPU output|
+# kernel vs plain, as a fraction of the plain output's max |value|:
+DGRID_TOL = 1e-5  # same arithmetic, rounding order of the channel sum only
+DIMG_TOL = 1e-5  # float atomics add the taps in an order that varies by run
+SSIM_LOSS_ATOL = 1e-5  # window sums in another order than cuDNN's convs
+SSIM_GRAD_TOL = 1e-4  # ... and the variance terms cancel, amplifying it
+# card vs CPU through autograd (warp and SSIM alone), as a fraction of the
+# max |grad| (cuDNN-free; the d_img atomics reorder sums)
+GRAD_TOL = 2e-3
+# a whole train step on the card against the same step in f64 on the
+# CPU, as a fraction of each net's largest gradient. f32 determines these
+# gradients only to a few percent at this configuration, on any device:
+# the sensitivity net's output is normalised to unit magnitude (one coil),
+# whose backward cancels its radial part and divides by |x|. The CPU's own
+# f32 step lands up to 4.9e-2 (net_R) and 1.0e-2 (net_T) away from f64 in
+# these runs (logged beside each check), the card's up to 4.6e-2. That the
+# warp's gradient reaches net_T at all is checked by check_train.
+STEP_GRAD_TOL = 1e-1
+LOSS_RTOL = 1e-4
 
 
 def log(*args):
@@ -193,31 +228,177 @@ def check_grid_sample(rng):
         "library": lambda i, g: F.grid_sample(
             i, g, mode="bilinear", padding_mode="zeros", align_corners=False),
     }
-    times = {k: [] for k in fns}
-    for order in (("plain", "kernel", "library"), ("library", "kernel", "plain")):
-        for k in order:
-            times[k].append(time_ms(fns[k], sets))
-    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    ms, times = time_all(fns, sets)
     n, c, h, w = sets[0][0].shape
     out_px = n * SHAPE * SHAPE
     nbytes = 4 * n * c * h * w + 8 * out_px + 4 * c * out_px
     flops = out_px * (18 + 7 * c)  # coordinates + weights, 4 taps per channel
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    log(f"grid_sample timing [8,1,320,320] f32 zeros: {times} ms; "
-        f"bound {bound * 1e3:.2f} us ({nbytes / 1e6:.1f} MB)")
+    log(f"grid_sample timing [8,1,320,320] f32 zeros: {times} ms "
+        f"({nbytes / 1e6:.1f} MB)")
+    return entry(kgs.NAME, "grid_sample.cu", "grid_sample.py:222", max_err,
+                 ms, nbytes, flops)
+
+
+def entry(name, source, replaces, max_err, ms, nbytes, flops):
+    """One kernel's line of the `kernels` JSON (without the launches)."""
     return {
-        "name": kgs.NAME,
+        "name": name,
         "route": "cuda",
-        "source": "spatialalignmentnetwork_tpu_torch/csrc/grid_sample.cu",
-        "replaces": "spatialalignmentnetwork_tpu/ops/pallas/grid_sample.py:222",
+        "source": f"spatialalignmentnetwork_tpu_torch/csrc/{source}",
+        "replaces": f"spatialalignmentnetwork_tpu/ops/pallas/{replaces}",
         "max_abs_err": max_err,
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
-        "bound_ms": bound,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
         else "operations",
-        "library_ms": ms["library"],
+        "library_ms": ms.get("library"),
     }
+
+
+def time_all(fns, sets):
+    """Time each of `fns` on `sets` in two rounds of opposite order;
+    returns ({name: mean ms}, {name: [ms per round]})."""
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(time_ms(fns[k], sets))
+    return {k: sum(v) / len(v) for k, v in times.items()}, times
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def check_grid_sample_bwd(rng):
+    """The d_grid and d_img kernels vs their plain versions on the card;
+    returns their `kernels` entries (without the launch counts)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
+
+    dev = torch.device("cuda")
+    err = {"dgrid": 0.0, "dimg": 0.0}
+    for n, c, h, w in ((TRAIN_BATCH, 1, SHAPE, SHAPE), (TRAIN_BATCH, 2, SHAPE, SHAPE),
+                       (2, 1, 317, 301)):
+        img = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(dev)
+        grid = sample_grid(rng, n, h, w).to(dev)
+        for mode in kgs.PADDING_MODES:
+            got = kgs.grid_sample_bwd_dgrid_cuda(img, grid, g, mode)
+            want = kgs.grid_sample_bwd_dgrid_plain(img, grid, g, mode)
+            e = rel_err(got, want)
+            if not e <= DGRID_TOL:
+                raise AssertionError(f"d_grid [{n},{c},{h},{w}] {mode}: {e}")
+            err["dgrid"] = max(err["dgrid"], float((got - want).abs().max()))
+            got = kgs.grid_sample_bwd_dimg_cuda(grid, g, img.shape, mode)
+            again = kgs.grid_sample_bwd_dimg_cuda(grid, g, img.shape, mode)
+            want = kgs.grid_sample_bwd_dimg_plain(grid, g, img.shape, mode)
+            ei = rel_err(got, want)
+            if not ei <= DIMG_TOL:
+                raise AssertionError(f"d_img [{n},{c},{h},{w}] {mode}: {ei}")
+            err["dimg"] = max(err["dimg"], float((got - want).abs().max()))
+            log(f"grid_sample bwd [{n},{c},{h},{w}] {mode:10s}: d_grid "
+                f"max|kernel-plain|/max|plain| {e:.3g} (tol {DGRID_TOL}), d_img "
+                f"{ei:.3g} (tol {DIMG_TOL}), d_img run to run max|diff| "
+                f"{float((got - again).abs().max()):.3g}")
+
+    # time at the train shape: the warp of |aux| [4, 1, 320, 320], zeros
+    sets = []
+    for _ in range(10):  # 10 x 6.6 MB of inputs > 50 MB of L2
+        shape = (TRAIN_BATCH, 1, SHAPE, SHAPE)
+        sets.append((
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+            sample_grid(rng, TRAIN_BATCH, SHAPE, SHAPE).to(dev),
+            torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+        ))
+    aten = torch.ops.aten.grid_sampler_2d_backward
+    ms_grid, t_grid = time_all({
+        "plain": lambda i, gr, g: kgs.grid_sample_bwd_dgrid_plain(i, gr, g),
+        "kernel": lambda i, gr, g: kgs.grid_sample_bwd_dgrid_cuda(i, gr, g),
+        "library": lambda i, gr, g: aten(g, i, gr, 0, 0, False, [False, True]),
+    }, sets)
+    ms_img, t_img = time_all({
+        "plain": lambda i, gr, g: kgs.grid_sample_bwd_dimg_plain(gr, g, i.shape),
+        "kernel": lambda i, gr, g: kgs.grid_sample_bwd_dimg_cuda(gr, g, i.shape),
+        "library": lambda i, gr, g: aten(g, i, gr, 0, 0, False, [True, False]),
+    }, sets)
+    n, c, h, w = sets[0][0].shape
+    px = n * h * w
+    # d_grid: image, grid and upstream gradient read, d_grid written
+    b_grid = 4 * n * c * h * w + 8 * px + 4 * c * px + 8 * px
+    # d_img: grid and upstream gradient read, d_img written
+    b_img = 8 * px + 4 * c * px + 4 * n * c * h * w
+    log(f"d_grid timing [4,1,320,320] zeros: {t_grid} ms ({b_grid / 1e6:.2f} MB)")
+    log(f"d_img timing [4,1,320,320] zeros: {t_img} ms ({b_img / 1e6:.2f} MB)")
+    return [
+        entry(kgs.DGRID, "grid_sample.cu", "grid_sample.py:451", err["dgrid"],
+              ms_grid, b_grid, px * (30 + 14 * c)),
+        entry(kgs.DIMG, "grid_sample.cu", "grid_sample.py:438", err["dimg"],
+              ms_img, b_img, px * (20 + 8 * c)),
+    ]
+
+
+def check_ssim(rng):
+    """The SSIM forward and backward kernels vs their plain versions on the
+    card; returns their `kernels` entries (without the launch counts)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import ssim as kssim
+
+    dev = torch.device("cuda")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    one = torch.ones((), device=dev)
+    for shape in ((TRAIN_BATCH, 1, SHAPE, SHAPE), (TRAIN_BATCH, 2, SHAPE, SHAPE),
+                  (2, 1, 317, 301), (1, 1, 7, 7)):
+        X = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        Y = (X + torch.from_numpy(
+            0.1 * rng.standard_normal(shape).astype(np.float32)).to(dev)).contiguous()
+        n, c, h, w = shape
+        valid = n * c * (h - 6) * (w - 6)
+        got = kssim.ssim_fwd_cuda(X, Y)
+        want = kssim.ssim_fwd_plain(X, Y)
+        e = abs(float(got.sum() - want.sum())) / valid  # on the loss
+        if not e <= SSIM_LOSS_ATOL:
+            raise AssertionError(f"ssim_fwd {shape}: loss differs by {e}")
+        err["fwd"] = max(err["fwd"], e)
+        dX, dY = kssim.ssim_bwd_cuda(X, Y, one)
+        wX, wY = kssim.ssim_bwd_plain(X, Y, one)
+        eb = max(rel_err(dX, wX), rel_err(dY, wY))
+        if not eb <= SSIM_GRAD_TOL:
+            raise AssertionError(f"ssim_bwd {shape}: {eb}")
+        err["bwd"] = max(err["bwd"], float((dX - wX).abs().max()),
+                         float((dY - wY).abs().max()))
+        log(f"ssim {list(shape)}: loss |kernel-plain| {e:.3g} (tol "
+            f"{SSIM_LOSS_ATOL}), dX/dY max|kernel-plain|/max|plain| {eb:.3g} "
+            f"(tol {SSIM_GRAD_TOL}); loss {1 - float(got.sum()) / valid:.6f}")
+
+    shape = (TRAIN_BATCH, 1, SHAPE, SHAPE)
+    sets = []
+    for _ in range(20):  # 20 x 3.3 MB of inputs > 50 MB of L2
+        X = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        sets.append((X, (X * 0.9 + 0.05).contiguous(), one))
+    ms_fwd, t_fwd = time_all({
+        "plain": lambda x, y, g: kssim.ssim_fwd_plain(x, y),
+        "kernel": lambda x, y, g: kssim.ssim_fwd_cuda(x, y),
+    }, sets)
+    ms_bwd, t_bwd = time_all({
+        "plain": lambda x, y, g: kssim.ssim_bwd_plain(x, y, g),
+        "kernel": lambda x, y, g: kssim.ssim_bwd_cuda(x, y, g),
+    }, sets)
+    px = int(np.prod(shape))
+    b_fwd = 8 * px + 4 * shape[0] * shape[1]  # X, Y read; per-plane sums
+    b_bwd = 16 * px + 4  # X, Y (and g) read; dX, dY written
+    log(f"ssim_fwd timing {list(shape)}: {t_fwd} ms ({b_fwd / 1e6:.2f} MB); "
+        f"ssim_bwd: {t_bwd} ms ({b_bwd / 1e6:.2f} MB); no one-call "
+        "PyTorch equivalent")
+    return [
+        entry(kssim.FWD, "ssim.cu", "ssim.py:81", err["fwd"], ms_fwd, b_fwd,
+              100 * px),
+        entry(kssim.BWD, "ssim.cu", "ssim.py:204", err["bwd"], ms_bwd, b_bwd,
+              200 * px),
+    ]
 
 
 # ------------------------------------------------------------- serving
@@ -225,7 +406,7 @@ def serving_cfg(shape=SHAPE):
     """The flagship configuration at CSModel's default widths."""
     from spatialalignmentnetwork_tpu_torch.engine.config import Config
 
-    return Config(shape=shape, coils=1, mask="equispaced", sparsity=0.25)
+    return Config(shape=shape, coils=1, mask="equispaced", sparsity=0.25, lr=1e-4)
 
 
 def random_entries(model, rng):
@@ -354,6 +535,217 @@ def check_serving(rng, device="cuda", shape=SHAPE, batch=BATCH):
     return launches
 
 
+# ------------------------------------------------------------- training
+def train_cfg(shape=SHAPE):
+    """The serving configuration with the reference's Rec recipe
+    (commands_train_test.sh:27-38: lr 1e-4, sim 1, smooth 1000)."""
+    cfg = serving_cfg(shape)
+    cfg.reg = "Rec"
+    cfg.weight_sim = 1.0
+    cfg.weight_smooth = 1000.0
+    return cfg
+
+
+def grad_error(got, ref):
+    """Per net: (the worst leaf's max |got - ref| / the net's max |ref|,
+    that leaf's name)."""
+    out = {}
+    for name in ref:
+        net_max = max(float(g.abs().max()) for g in ref[name].values())
+        out[name] = max((float((got[name][k].double() - g).abs().max()) / net_max, k)
+                        for k, g in ref[name].items())
+    return out
+
+
+def rec_step_f64(cfg, entries, full, aux):
+    """Gradients of one Rec step on the CPU in float64 (nets, inputs and
+    every op but the warp, whose plain version computes in f32), without
+    the optimizer step; and the range of the sensitivity maps' magnitude
+    before their unit-magnitude normalisation."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
+    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
+
+    model = CSModel(cfg=cfg, device="cpu", seed=0)
+    model.load_entries(entries)
+    model.net_T.to(torch.float64)
+    model.net_R.to(torch.float64)
+    model._nets_mode(train=True)
+    env = model._prepare(torch.from_numpy(full).to(torch.complex128),
+                         torch.from_numpy(aux).to(torch.complex128), model.pruned)
+    total, _ = model._regime_loss(env, "Rec")
+    total.backward()
+    with torch.no_grad():
+        k = env["img_k_sampled"]
+        acs = ifft2(k * acs_mask(k.shape[-1], model.num_low_frequencies)[None, None, None, :])
+        n, c, h, w = acs.shape
+        sens = rss(model.net_R.sens_net.norm_unet(acs.reshape(n * c, 1, h, w)))
+    grads = {name: {k: p.grad.detach() for k, p in getattr(model, name).named_parameters()}
+             for name in ("net_T", "net_R")}
+    return grads, (float(sens.min()), float(sens.median()), float(sens.max()))
+
+
+def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """WARMUP + TIMED Rec train steps at full width; returns the launch
+    counts of that run. (The CPU tests run it at a small shape on the CPU,
+    where no kernel launches.)"""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    model = CSModel(cfg=train_cfg(shape), device=device, seed=0)
+    model.load_entries(random_entries(model, rng))
+    batches = [phantoms(rng, batch, shape) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    before = [p.detach().clone() for p in model.net_T.parameters()]
+    is_cuda = model.device.type == "cuda"
+    if is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    kernels.reset_launches()
+    for i, (full, aux) in enumerate(batches):
+        if i == WARMUP_STEPS:
+            if is_cuda:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+        model.set_input(full, aux)
+        model.update()
+        losses.append(model._aux)
+    if is_cuda:
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+    else:
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    steps = len(batches)
+    losses = [{k: float(v) for k, v in step.items()} for step in losses]
+    for i, step in enumerate(losses):
+        log(f"train step {i}: {step}")
+        if not all(np.isfinite(v) for v in step.values()):
+            raise AssertionError(f"train step {i}: non-finite loss {step}")
+    log(f"Rec train on {model.device}: batch {batch}, {shape}x{shape}, "
+        f"{steps} steps ({WARMUP_STEPS} warm-up), "
+        f"{secs * 1e3 / TIMED_STEPS:.2f} ms per step, "
+        f"{TIMED_STEPS / secs:.3f} steps/s, {TIMED_STEPS * batch / secs:.2f} "
+        f"slices/s; launches {launches}")
+    if is_cuda:
+        log(f"train peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        want = {"grid_sample_fwd": steps, "grid_sample_bwd_dgrid": steps,
+                "ssim_fwd": steps, "ssim_bwd": steps}
+        if launches != want:  # grid_sample_bwd_dimg: |aux| needs no gradient
+            raise AssertionError(f"train launches {launches}, expected {want}")
+    moved = [float((p.detach() - b).abs().max())
+             for p, b in zip(model.net_T.parameters(), before)]
+    if not min(moved) > 0:
+        raise AssertionError(f"net_T parameters did not all move: {moved}")
+    # the warp's gradient reaches net_T: loss_sim alone (no smoothness
+    # term) must give the STN head a gradient
+    model.net_T.zero_grad(set_to_none=True)
+    env = model._prepare(*model._batch, model.pruned)
+    _, step_losses = model._regime_loss(env, "Rec")
+    step_losses["loss_sim"].backward()
+    head = float(model.net_T.head.weight.grad.abs().max())
+    log(f"net_T max |param change| {max(moved):.3g}; |d loss_sim / d head| "
+        f"max {head:.3g}")
+    if not head > 0:
+        raise AssertionError("loss_sim sends no gradient into net_T")
+    return launches
+
+
+def check_autograd(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """ssimloss(target, warp(img, grid)) with img and grid learnable, on
+    `device` and on the CPU; returns the launch counts of the device run."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.ops.grid_sample import warp
+    from spatialalignmentnetwork_tpu_torch.ops.ssim import ssimloss
+
+    size = (batch, 1, shape, shape)
+    target = torch.from_numpy(rng.random(size).astype(np.float32))
+    img = torch.from_numpy(rng.random(size).astype(np.float32))
+    grid = sample_grid(rng, batch, shape, shape)
+
+    def run(dev):
+        i = img.to(dev).requires_grad_()
+        g = grid.to(dev).requires_grad_()
+        loss = ssimloss(target.to(dev), warp(i, g))
+        loss.backward()
+        return loss.detach().cpu(), i.grad.cpu(), g.grad.cpu()
+
+    kernels.reset_launches()
+    got = run(device)
+    launches = dict(kernels.LAUNCHES)
+    want = run("cpu")
+    e_loss = abs(float(got[0] - want[0]))
+    e_img, e_grid = rel_err(got[1], want[1]), rel_err(got[2], want[2])
+    log(f"autograd {list(size)} on {device} vs cpu: loss {float(want[0]):.6f} "
+        f"|diff| {e_loss:.3g}, d_img {e_img:.3g}, d_grid {e_grid:.3g} of max "
+        f"|grad| (tol {GRAD_TOL}); launches {launches}")
+    if not (e_loss <= SSIM_LOSS_ATOL and e_img <= GRAD_TOL and e_grid <= GRAD_TOL):
+        raise AssertionError("autograd: card and CPU differ")
+    if torch.device(device).type == "cuda":
+        want_launches = {"grid_sample_fwd": 1, "grid_sample_bwd_dgrid": 1,
+                         "grid_sample_bwd_dimg": 1, "ssim_fwd": 1, "ssim_bwd": 1}
+        if launches != want_launches:
+            raise AssertionError(f"autograd launches {launches}")
+    return launches
+
+
+def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2):
+    """One Rec step from the same weights on `device` and on the CPU, and
+    its gradients in f64 on the CPU: step-0 losses and every parameter's
+    gradient."""
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    cfg = train_cfg(shape)
+    models = {dev: CSModel(cfg=cfg, device=dev, seed=0) for dev in (device, "cpu")}
+    entries = random_entries(models["cpu"], rng)
+    full, aux = phantoms(rng, batch, shape)
+    grads, losses, secs = {}, {}, {}
+    for dev, model in models.items():
+        model.load_entries(entries)
+        model.set_input(full, aux)
+        t0 = time.perf_counter()
+        model.update()
+        losses[dev] = model.get_vis("scalars")["scalars"]
+        secs[dev] = time.perf_counter() - t0
+        grads[dev] = {
+            name: {k: p.grad.detach().cpu()
+                   for k, p in getattr(model, name).named_parameters()}
+            for name in ("net_T", "net_R")
+        }
+    t0 = time.perf_counter()
+    ref, sens = rec_step_f64(cfg, entries, full, aux)
+    secs["cpu f64"] = time.perf_counter() - t0
+    log(f"one Rec step, batch {batch}, {shape}x{shape}, {device} vs cpu: "
+        f"losses {losses[device]} vs {losses['cpu']} (rtol {LOSS_RTOL}); "
+        f"step seconds {secs}; |sens| before normalisation min, median, "
+        f"max {sens}")
+    for k, v in losses["cpu"].items():
+        if not abs(losses[device][k] - v) <= LOSS_RTOL * abs(v):
+            raise AssertionError(f"step-0 {k}: {losses[device][k]} vs cpu {v}")
+    err = {dev: grad_error(grads[dev], ref) for dev in (device, "cpu")}
+    err["card vs cpu"] = grad_error(grads[device], grads["cpu"])
+    log(f"gradients, worst leaf's max |diff| / net's max |grad| (leaf): "
+        f"{device} f32 vs cpu f64 {err[device]} (tol {STEP_GRAD_TOL}); cpu "
+        f"f32 vs cpu f64 {err['cpu']}; {device} vs cpu f32 "
+        f"{err['card vs cpu']}")
+    for name, (e, leaf) in err[device].items():
+        if not e <= STEP_GRAD_TOL:
+            raise AssertionError(f"{name}: {device} gradients differ from "
+                                 f"f64 by {e} of the net's max at {leaf}")
+
+
 def main():
     import torch
 
@@ -366,14 +758,18 @@ def main():
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-    build_kernels(["grid_sample.cu"])
+    build_kernels(["grid_sample.cu", "ssim.cu"])
     rng = np.random.default_rng(0)
-    entries = [check_grid_sample(rng)]
-    launches = check_serving(rng)
+    entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng)]
+    main_paths = [check_serving(rng), check_train(rng)]
+    autograd = check_autograd(rng)
+    check_train_vs_cpu(rng)
     for e in entries:
-        e["launches"] = launches.get(e["name"], 0)
+        # serving and training are the main paths; d_img runs on its own
+        paths = [autograd] if e["name"] == "grid_sample_bwd_dimg" else main_paths
+        e["launches"] = sum(p.get(e["name"], 0) for p in paths)
         if e["launches"] == 0:
-            raise AssertionError(f"{e['name']} was not launched on the main path")
+            raise AssertionError(f"{e['name']} was not launched on its path")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in order} for e in entries]}))

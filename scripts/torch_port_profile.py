@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's serving time goes on one NVIDIA GPU.
+"""Where the PyTorch port's serving or training time goes on one NVIDIA GPU.
 
     python3 scripts/torch_port_profile.py [--batch 8] [--requests 3]
+    python3 scripts/torch_port_profile.py --train [--batch 4] [--requests 3]
 
-Builds the serving CSModel at the default widths (320 x 320, 1 coil, 4x
+Builds the CSModel at the default widths (320 x 320, 1 coil, 4x
 equispaced) with the synthetic weights and phantoms of chip_smoke.py,
-warms it up, then profiles `--requests` reconstruct calls with
-torch.profiler and prints: slices/s, the device time by the category of
-the aten op that launched it, the top ops and kernels, and the device's
-idle share of the profiled window (one minus the union of kernel
-intervals over the window). Needs a card.
+warms it up, then profiles `--requests` reconstruct calls (or, with
+--train, Rec train steps: set_input + update) with torch.profiler and
+prints: slices/s, the device time by the category of the aten op that
+launched it, the top ops and kernels, and the device's idle share of the
+profiled window (one minus the union of kernel intervals over the
+window). Needs a card.
 """
 
 import argparse
@@ -25,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OP_CATEGORIES = (  # first match wins, on the lower-cased aten op name
     ("conv", ("conv",)),
     ("fft", ("fft",)),
+    ("optimizer", ("_foreach", "adam")),
     ("norm/reduce", ("var_mean", "batch_norm", "sum", "mean", "norm")),
     ("copy", ("copy", "to", "fill", "zero", "cat", "pad", "roll")),
 )
@@ -40,9 +43,14 @@ def op_category(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="slices per request or step (8 serving, 4 training)")
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--train", action="store_true",
+                    help="profile Rec train steps instead of serving")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 4 if args.train else 8
 
     import torch
     from torch.autograd import DeviceType
@@ -55,22 +63,32 @@ def main():
         raise SystemExit("no CUDA card available")
     print(f"card: {chip_smoke.nvidia_smi()}", flush=True)
     rng = np.random.default_rng(0)
-    cfg = chip_smoke.serving_cfg()
+    cfg = chip_smoke.train_cfg() if args.train else chip_smoke.serving_cfg()
     model = CSModel(cfg=cfg, device="cuda", seed=0)
     model.load_entries(chip_smoke.random_entries(model, rng))
     reqs = [chip_smoke.phantoms(rng, args.batch, cfg.shape)
             for _ in range(args.requests)]
+
+    def run(full, aux):
+        if args.train:
+            model.set_input(full, aux)
+            model.update()
+        else:
+            model.reconstruct(full, aux)
+
     for full, aux in reqs[:2]:
-        model.reconstruct(full, aux)
+        run(full, aux)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for full, aux in reqs:
-            model.reconstruct(full, aux)
+            run(full, aux)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device rows, without the ranges of annotations such as Optimizer.step
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     if not kernels:
         raise SystemExit("the profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -98,7 +116,8 @@ def main():
             by_cat[op_category(avg.key[len("aten::"):])] += avg.self_device_time_total
     by_cat["(no aten op: ctypes kernels)"] = total - sum(by_cat.values())
     n_slices = args.batch * args.requests
-    print(f"{args.requests} requests x {args.batch} slices in {wall * 1e3:.1f} ms "
+    what = "train steps" if args.train else "requests"
+    print(f"{args.requests} {what} x {args.batch} slices in {wall * 1e3:.1f} ms "
           f"host wall under the profiler: {n_slices / wall:.2f} slices/s")
     print(f"device kernel time {total / 1e3:.2f} ms "
           f"({total / 1e3 / n_slices:.3f} ms/slice); device busy "

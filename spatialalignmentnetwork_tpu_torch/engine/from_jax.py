@@ -21,7 +21,10 @@ the reference torch names that module maps:
     scale/bias/mean/var become weight/bias/running_mean/running_var.
 
 An entry list holds (torch_key, jax_key, cascade_index or None, kind),
-kind one of "conv", "convT", "same".
+kind one of "conv", "convT", "same". The same lists carry the port's
+tensors back (`to_jax_entries`), so the port writes checkpoints the JAX
+package loads; the layout maps are permutations, so Adam's moments travel
+with them exactly.
 """
 
 import numpy as np
@@ -113,11 +116,21 @@ def to_jax_layout_shape(shape, kind: str) -> tuple:
     return tuple(shape)
 
 
-def load_from_jax(module: nn.Module, entry: dict, entries: list):
-    """Load a JAX checkpoint entry into `module` (strict both ways: every
-    `params/` and `stats/` array of the entry is used, every parameter and
-    running statistic of the module is set)."""
-    sd = {}
+def from_torch_layout(a: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":  # OIHW -> HWIO
+        return np.transpose(a, (2, 3, 1, 0))
+    if kind == "convT":  # spatially flipped IOHW -> HWIO
+        return np.transpose(a[:, :, ::-1, ::-1], (2, 3, 0, 1))
+    if kind == "same":
+        return a
+    raise ValueError(f"unknown entry kind {kind!r}")
+
+
+def to_torch_tensors(entry: dict, entries: list) -> dict:
+    """A JAX entry -> {torch key: f32 tensor} (strict both ways: every
+    entry of the list is found, every `params/` and `stats/` array of the
+    entry is used)."""
+    out = {}
     used = set()
     for tkey, jkey, cascade, kind in entries:
         if jkey not in entry:
@@ -126,17 +139,63 @@ def load_from_jax(module: nn.Module, entry: dict, entries: list):
         if cascade is not None:
             a = a[cascade]
         # np.array copies: checkpoint arrays may be read-only views
-        sd[tkey] = torch.from_numpy(
+        out[tkey] = torch.from_numpy(
             np.array(to_torch_layout(a, kind), dtype=np.float32)
         )
         used.add(jkey)
     unused = {k for k in entry if k.startswith(("params/", "stats/"))} - used
     if unused:
         raise KeyError(f"JAX entry has arrays the module lacks: {sorted(unused)[:5]}")
+    return out
+
+
+def to_jax_entries(tensors: dict, entries: list) -> dict:
+    """The inverse of `to_torch_tensors`: {torch key: tensor} -> a JAX
+    entry {jax key: f32 array}, the cascades stacked on a leading axis.
+    Entries whose torch key is absent are skipped (Adam's moments exist
+    for parameters only); every given tensor must be used."""
+    out = {}
+    stacks = {}
+    used = set()
+    for tkey, jkey, cascade, kind in entries:
+        if tkey not in tensors:
+            continue
+        a = from_torch_layout(
+            tensors[tkey].detach().to("cpu", torch.float32).numpy(), kind
+        )
+        used.add(tkey)
+        if cascade is None:
+            out[jkey] = np.ascontiguousarray(a)
+        else:
+            stacks.setdefault(jkey, {})[cascade] = a
+    for jkey, parts in stacks.items():
+        if sorted(parts) != list(range(len(parts))):
+            raise KeyError(f"{jkey}: cascades {sorted(parts)} are not 0..n-1")
+        out[jkey] = np.stack([parts[c] for c in range(len(parts))])
+    unused = set(tensors) - used
+    if unused:
+        raise KeyError(f"tensors no entry maps: {sorted(unused)[:5]}")
+    return out
+
+
+def load_from_jax(module: nn.Module, entry: dict, entries: list):
+    """Load a JAX checkpoint entry into `module` (strict both ways: every
+    `params/` and `stats/` array of the entry is used, every parameter and
+    running statistic of the module is set)."""
+    sd = to_torch_tensors(entry, entries)
     for name, buf in module.state_dict().items():
         if name.endswith("num_batches_tracked"):
             sd[name] = torch.zeros_like(buf)
     module.load_state_dict(sd, strict=True)
+
+
+def varnet_entries_of(module: nn.Module) -> list:
+    """Entries of a VarNet module, its depths read from the module."""
+    return varnet_entries(
+        len(module.cascades),
+        len(module.sens_net.norm_unet.unet.down_sample_layers),
+        len(module.cascades[0].model.unet.down_sample_layers),
+    )
 
 
 def load_stn(module: nn.Module, entry: dict):
@@ -144,8 +203,4 @@ def load_stn(module: nn.Module, entry: dict):
 
 
 def load_varnet(module: nn.Module, entry: dict):
-    load_from_jax(module, entry, varnet_entries(
-        len(module.cascades),
-        len(module.sens_net.norm_unet.unet.down_sample_layers),
-        len(module.cascades[0].model.unet.down_sample_layers),
-    ))
+    load_from_jax(module, entry, varnet_entries_of(module))

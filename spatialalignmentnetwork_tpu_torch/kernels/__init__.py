@@ -9,6 +9,8 @@ import every module on machines without `nvcc` or a card.
 
 `LAUNCHES` counts each kernel's launches (one per wrapper call that
 launches it), so a caller can show that a path went through its kernels.
+`on_card` picks the route for a tensor: its kernel on a CUDA tensor, its
+plain PyTorch version on a CPU tensor, nothing else.
 """
 
 import collections
@@ -34,6 +36,31 @@ LAUNCHES = collections.Counter()
 def reset_launches():
     """Set every kernel's launch count to 0."""
     LAUNCHES.clear()
+
+
+def on_card(t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def stream(t) -> int:
+    """The handle of PyTorch's current stream on `t`'s card."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(name: str, rc: int):
+    """Raise on a launch's cudaError; else count the launch under `name`."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -18,13 +18,36 @@ from torch import nn
 from .layers import avg_pool2, upsample_nearest2
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's `BatchNorm(momentum=0.9)` training semantics,
+    the JAX package's (its models/unet_lib.py:34-37).
+
+    Training normalises with the batch's biased variance, as both
+    frameworks do, but updates the running statistics as flax does:
+    running = 0.9 * running + 0.1 * batch, with the BIASED batch variance
+    taken flax's way, mean(x^2) - mean(x)^2 (torch's own BatchNorm2d
+    updates with the unbiased variance). Evaluation is torch's. The
+    `state_dict` names are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class ConvBNAct(nn.Module):
     """conv (with bias) -> BatchNorm (eps 1e-5) -> LeakyReLU(0.01)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
         return F.leaky_relu(self.bn(self.conv(x)), 0.01)

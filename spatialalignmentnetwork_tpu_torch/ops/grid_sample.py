@@ -5,8 +5,9 @@ package's `ops/grid_sample.py`).
     grid[..., 0] = x (width axis), grid[..., 1] = y; align_corners=False.
   * grid_sample(input, grid, padding_mode): bilinear sampling; out-of-bounds
     reads are zero (zeros), edge-clamped (border) or edge-reflected
-    (reflection). On a CUDA tensor it runs the CUDA kernel
-    (`kernels/grid_sample.py`), on a CPU tensor its plain version.
+    (reflection). Differentiable in the image and the grid through the
+    autograd Function of `kernels/grid_sample.py`: on CUDA tensors the CUDA
+    kernels run forward and backward, on CPU tensors their plain versions.
 """
 
 import torch

@@ -152,6 +152,39 @@ def test_libunet_and_stn_from_jax_match():
     np.testing.assert_allclose(tgrid.numpy(), np.asarray(jgrid), **MODULES)
 
 
+def test_stn_train_forward_updates_batch_stats_like_flax():
+    """One train-mode forward: the port's BatchNorm updates its running
+    statistics as flax's BatchNorm(momentum=0.9) does in the JAX package,
+    with the biased batch variance (torch's own BatchNorm2d uses the
+    unbiased one, off by a factor n / (n - 1) of the batch term). rtol
+    1e-5; atol 1e-6 for the means of O(1) activations, which carry the
+    convs' f32 sum order at 1e-7 to 1e-6."""
+    layers = (4, 8, 8)
+    mov, fix = np.abs(_rand((2, 1, 16, 16), 11)), np.abs(_rand((2, 1, 16, 16), 12))
+    jstn = JaxSTN(channels=1, feat=4, layers=layers)
+    v = jstn.init({"params": jax.random.PRNGKey(2)}, jnp.asarray(mov),
+                  jnp.asarray(fix), train=False)
+    params = _randomize(v["params"], 13)
+    stats = _randomize(v["batch_stats"], 14, positive=("var",))
+    (joff, _), upd = jstn.apply({"params": params, "batch_stats": stats},
+                                jnp.asarray(mov), jnp.asarray(fix), train=True,
+                                mutable=["batch_stats"])
+    tstn = SpatialTransformer(channels=1, feat=4, layers=layers)
+    from_jax.load_stn(tstn, _entry(params, stats))
+    tstn.train()
+    toff, _ = tstn(torch.from_numpy(mov), torch.from_numpy(fix))
+    np.testing.assert_allclose(toff.detach().numpy(), np.asarray(joff), **MODULES)
+    want = {f"stats/{k}": np.asarray(a) for k, a in jflatten(upd["batch_stats"]).items()}
+    sd = tstn.state_dict()
+    checked = 0
+    for tkey, jkey, _, _ in from_jax.stn_entries(tstn):
+        if jkey.startswith("stats/"):
+            np.testing.assert_allclose(sd[tkey].numpy(), want[jkey], rtol=1e-5,
+                                       atol=1e-6, err_msg=jkey)
+            checked += 1
+    assert checked == len(want)
+
+
 def test_stn_state_dict_through_torch_compat_matches():
     layers = (4, 8, 8)
     torch.manual_seed(0)

@@ -1,14 +1,19 @@
 """The PyTorch port's signal ops against the JAX package, on the CPU.
 
 fft2/ifft2/rss/shifts, the k-space masks (same seed -> same `pruned`),
-and the plain grid_sample that stands beside the CUDA kernel: held
-against the JAX gather (`impl="jnp"`), the Pallas kernel in interpret
-mode, and torch's own `F.grid_sample`. Inputs come from numpy seeds.
-Tolerance for f32 ops: atol 1e-5 (differences are f32 rounding order).
+the plain grid_sample that stands beside the CUDA kernels, forward and
+backward: held against the JAX gather (`impl="jnp"`), the Pallas kernel in
+interpret mode (with its custom VJP), and torch's own `F.grid_sample`;
+the window sums and the plain SSIM loss, forward and closed-form backward,
+against the JAX package's and the Pallas kernel's. Inputs come from numpy
+seeds. Tolerance for f32 ops: atol 1e-5 (differences are f32 rounding
+order); gradients rtol 1e-4 with atol 1e-5 (grid sample) and 1e-6 (SSIM,
+whose gradients are of order 1e-3).
 """
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 import torch.nn.functional as F
@@ -23,20 +28,28 @@ from spatialalignmentnetwork_tpu.ops.grid_sample import (
     identity_grid as jidentity_grid,
 )
 from spatialalignmentnetwork_tpu.ops.pallas.grid_sample import grid_sample_pallas
+from spatialalignmentnetwork_tpu.ops.pallas.ssim import ssimloss_pallas
+from spatialalignmentnetwork_tpu.ops.ssim import ssim_map as jssim_map
+from spatialalignmentnetwork_tpu.ops.window import window_sum2d as jwindow_sum2d
 
 from spatialalignmentnetwork_tpu_torch import kernels
 from spatialalignmentnetwork_tpu_torch.engine import checkpoint as tckpt
 from spatialalignmentnetwork_tpu_torch.engine.config import Config
 from spatialalignmentnetwork_tpu_torch.models.stn import gradient_loss
 from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
+from spatialalignmentnetwork_tpu_torch.kernels import ssim as kssim
 from spatialalignmentnetwork_tpu_torch.ops import fft as tfft
 from spatialalignmentnetwork_tpu_torch.ops import masks as tmasks
 from spatialalignmentnetwork_tpu_torch.ops.grid_sample import (
     affine_grid, grid_sample, identity_grid, warp,
 )
+from spatialalignmentnetwork_tpu_torch.ops.ssim import ssim_map, ssimloss
+from spatialalignmentnetwork_tpu_torch.ops.window import window_sum2d
 
 torch.set_num_threads(2)
 ATOL = 1e-5
+GS_GRAD = dict(rtol=1e-4, atol=1e-5)
+SSIM_GRAD = dict(rtol=1e-4, atol=1e-6)
 
 
 def _complex(rng, shape):
@@ -209,3 +222,191 @@ def test_wrapper_routes_cpu_to_plain_and_checks_inputs():
         kgs.grid_sample_fwd(img, torch.zeros((1, 8, 8, 3)))
     with pytest.raises(ValueError):
         kgs.grid_sample_fwd(img, grid, "wrap")
+
+
+def _jax_vjp(fn, img, grid, g):
+    """(d_img, d_grid) of fn(img, grid) for the cotangent g, jitted."""
+    out = jax.jit(lambda i, gr, ct: jax.vjp(fn, i, gr)[1](ct))(
+        jnp.asarray(img), jnp.asarray(grid), jnp.asarray(g))
+    return [np.asarray(a) for a in out]
+
+
+@pytest.mark.parametrize("shapes", [((16, 16), (16, 16)), ((24, 32), (16, 24))])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_plain_grid_sample_backward_matches_jax(shapes, padding_mode):
+    """d_img and d_grid of the plain versions against jax.vjp through the
+    Pallas kernel (its custom VJP, interpreted) on every grid, and through
+    the JAX gather except where the two JAX versions differ: at an exact
+    upper-edge coordinate in border/reflection mode the gather reads the
+    clamped tap where the Pallas tent (and the port) read 0."""
+    (h, w), (ho, wo) = shapes
+    n, c = 2, 3
+    rng = np.random.default_rng(11)
+    img = rng.standard_normal((n, c, h, w)).astype(np.float32)
+    grids = _grids(n, ho, wo)
+    grids["boundary"] = _boundary_grid(n, ho, wo, h, w)
+    grids["identity"] = np.broadcast_to(
+        np.asarray(jidentity_grid((n, 1, ho, wo))), (n, ho, wo, 2)).copy()
+    vjps = {
+        "pallas": jax.jit(lambda i, gr, ct: jax.vjp(
+            lambda a, b: grid_sample_pallas(a, b, padding_mode, interpret=True),
+            i, gr)[1](ct)),
+        "jnp": jax.jit(lambda i, gr, ct: jax.vjp(
+            lambda a, b: jgrid_sample(a, b, padding_mode, impl="jnp"), i, gr)[1](ct)),
+    }
+    for name, grid in grids.items():
+        g = rng.standard_normal((n, c, ho, wo)).astype(np.float32)
+        timg, tgrid, tg = map(torch.from_numpy, (img, grid, g))
+        got = (kgs.grid_sample_bwd_dimg_plain(tgrid, tg, img.shape, padding_mode).numpy(),
+               kgs.grid_sample_bwd_dgrid_plain(timg, tgrid, tg, padding_mode).numpy())
+        impls = ["pallas"]
+        if padding_mode == "zeros" or name not in ("boundary", "identity"):
+            impls.append("jnp")
+        for impl in impls:
+            want = [np.asarray(a) for a in vjps[impl](
+                jnp.asarray(img), jnp.asarray(grid), jnp.asarray(g))]
+            for what, a, b in zip(("d_img", "d_grid"), got, want):
+                np.testing.assert_allclose(a, b, **GS_GRAD,
+                                           err_msg=f"{impl} {name} {what}")
+
+
+def test_grid_sample_function_backward_equals_autograd_of_plain():
+    """On CPU tensors the autograd Function runs the plain forward and the
+    plain backward; away from clamp ties its gradients are torch's own
+    autograd through the plain forward."""
+    rng = np.random.default_rng(12)
+    img = rng.standard_normal((2, 3, 16, 24)).astype(np.float32)
+    g = rng.standard_normal((2, 3, 16, 24)).astype(np.float32)
+    for mode in ("zeros", "border", "reflection"):
+        for name in ("random", "out_of_range", "smooth"):
+            grid = _grids(2, 16, 24)[name]
+            grads = []
+            for fn in (lambda i, gr: kgs.GridSample.apply(i, gr, mode),
+                       lambda i, gr: kgs.grid_sample_plain(i, gr, mode)):
+                i = torch.from_numpy(img).requires_grad_()
+                gr = torch.from_numpy(grid).requires_grad_()
+                out = fn(i, gr)
+                grads.append(torch.autograd.grad(out, (i, gr), torch.from_numpy(g)))
+                if len(grads) == 1:
+                    assert type(out.grad_fn).__name__ == "GridSampleBackward"
+            for a, b in zip(*grads):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), **GS_GRAD,
+                                           err_msg=f"{mode} {name}")
+
+
+def test_mocked_cuda_route_keeps_the_gradient(monkeypatch):
+    """The card's route through the autograd Function: with the launchers
+    standing in for the kernels, the output has the Function as its
+    grad_fn (a ctypes-filled tensor alone would have none), and backward
+    runs the d_grid and d_img launchers once each."""
+    calls = []
+
+    def standin(name, fn):
+        def run(*args):
+            calls.append(name)
+            return fn(*args)
+        return run
+
+    monkeypatch.setattr(kgs, "on_card", lambda t: True)
+    monkeypatch.setattr(kgs, "grid_sample_cuda", standin("fwd", kgs.grid_sample_plain))
+    monkeypatch.setattr(kgs, "grid_sample_bwd_dgrid_cuda",
+                        standin("dgrid", kgs.grid_sample_bwd_dgrid_plain))
+    monkeypatch.setattr(kgs, "grid_sample_bwd_dimg_cuda",
+                        standin("dimg", kgs.grid_sample_bwd_dimg_plain))
+    rng = np.random.default_rng(13)
+    img = torch.from_numpy(rng.random((2, 1, 16, 16)).astype(np.float32)).requires_grad_()
+    grid = torch.from_numpy(_grids(2, 16, 16)["smooth"]).requires_grad_()
+    out = warp(img, grid)
+    assert out.grad_fn is not None
+    assert type(out.grad_fn).__name__ == "GridSampleBackward"
+    out.square().sum().backward()
+    assert calls == ["fwd", "dgrid", "dimg"]
+    i2 = img.detach().clone().requires_grad_()
+    g2 = grid.detach().clone().requires_grad_()
+    kgs.grid_sample_plain(i2, g2).square().sum().backward()
+    np.testing.assert_allclose(img.grad.numpy(), i2.grad.numpy(), **GS_GRAD)
+    np.testing.assert_allclose(grid.grad.numpy(), g2.grad.numpy(), **GS_GRAD)
+
+
+@pytest.mark.parametrize("padding_mode", ["border", "reflection"])
+def test_padding_tie_rule_on_identity_grid(padding_mode):
+    """The identity grid lands exactly on the first and last pixel centres,
+    the clamp bounds of border/reflection padding: there JAX's autodiff of
+    jnp.clip gives half the gradient (torch.clamp would give all of it),
+    and the port's d_grid follows JAX's."""
+    n, c, h, w = 2, 3, 16, 16
+    ident = np.broadcast_to(np.asarray(jidentity_grid((n, 1, h, w))), (n, h, w, 2)).copy()
+    ix = ((ident[..., 0] + 1.0) * w - 1.0) / 2.0
+    assert (ix == 0.0).any() and (ix == w - 1.0).any()  # exact ties
+    rng = np.random.default_rng(14)
+    img = rng.standard_normal((n, c, h, w)).astype(np.float32)
+    g = rng.standard_normal((n, c, h, w)).astype(np.float32)
+    tgrid = torch.from_numpy(ident).requires_grad_()
+    out = grid_sample(torch.from_numpy(img), tgrid, padding_mode)
+    (got,) = torch.autograd.grad(out, tgrid, torch.from_numpy(g))
+    want = _jax_vjp(lambda i, gr: grid_sample_pallas(i, gr, padding_mode,
+                                                     interpret=True), img, ident, g)[1]
+    np.testing.assert_allclose(got.numpy(), want, **GS_GRAD)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 16, 24), (3, 2, 13, 9), (1, 1, 7, 7)])
+def test_plain_ssim_matches_pallas_and_jax(shape):
+    rng = np.random.default_rng(15)
+    X = rng.random(shape).astype(np.float32)
+    Y = (X + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    loss, (gx, gy) = jax.value_and_grad(
+        lambda a, b: ssimloss_pallas(a, b, interpret=True), (0, 1)
+    )(jnp.asarray(X), jnp.asarray(Y))
+    tX = torch.from_numpy(X).requires_grad_()
+    tY = torch.from_numpy(Y).requires_grad_()
+    got = ssimloss(tX, tY)
+    assert got.shape == ()
+    np.testing.assert_allclose(float(got.detach()), float(loss), rtol=1e-5)
+    got.backward()
+    np.testing.assert_allclose(tX.grad.numpy(), np.asarray(gx), **SSIM_GRAD)
+    np.testing.assert_allclose(tY.grad.numpy(), np.asarray(gy), **SSIM_GRAD)
+    # the closed form against torch's autograd of the plain forward
+    aX = torch.from_numpy(X).requires_grad_()
+    aY = torch.from_numpy(Y).requires_grad_()
+    n, c, h, w = shape
+    (1 - kssim.ssim_fwd_plain(aX, aY).sum() / (n * c * (h - 6) * (w - 6))).backward()
+    np.testing.assert_allclose(tX.grad.numpy(), aX.grad.numpy(), **SSIM_GRAD)
+    np.testing.assert_allclose(tY.grad.numpy(), aY.grad.numpy(), **SSIM_GRAD)
+    np.testing.assert_allclose(
+        ssim_map(torch.from_numpy(X), torch.from_numpy(Y)).numpy(),
+        np.asarray(jssim_map(jnp.asarray(X), jnp.asarray(Y))), atol=ATOL,
+    )
+
+
+def test_window_sum2d_matches_jax():
+    x = np.random.default_rng(16).standard_normal((2, 3, 13, 10)).astype(np.float32)
+    for padding in ("VALID", "SAME"):
+        for win in (3, 7):
+            np.testing.assert_allclose(
+                window_sum2d(torch.from_numpy(x), win, padding).numpy(),
+                np.asarray(jwindow_sum2d(jnp.asarray(x), win, padding)),
+                atol=ATOL, err_msg=f"{padding} {win}",
+            )
+    with pytest.raises(ValueError):
+        window_sum2d(torch.from_numpy(x), 3, "FULL")
+
+
+def test_backward_and_ssim_wrappers_check_inputs():
+    img = torch.zeros((1, 1, 8, 8))
+    grid = torch.zeros((1, 8, 8, 2))
+    with pytest.raises(ValueError):  # CPU tensors never reach a kernel
+        kgs.grid_sample_bwd_dgrid_cuda(img, grid, img)
+    with pytest.raises(ValueError):
+        kgs.grid_sample_bwd_dimg_cuda(grid, img, img.shape)
+    with pytest.raises(ValueError):
+        kssim.ssim_fwd_cuda(img, img)
+    with pytest.raises(ValueError):
+        kssim.ssim_bwd_cuda(img, img, torch.ones(()))
+    with pytest.raises(ValueError):  # planes smaller than the window
+        ssimloss(torch.zeros((1, 1, 6, 8)), torch.zeros((1, 1, 6, 8)))
+    with pytest.raises(TypeError):
+        ssimloss(torch.zeros((1, 1, 8, 8), dtype=torch.complex64),
+                 torch.zeros((1, 1, 8, 8), dtype=torch.complex64))
+    kernels.reset_launches()
+    ssimloss(torch.rand((1, 1, 8, 8)), torch.rand((1, 1, 8, 8)))
+    assert kernels.LAUNCHES[kssim.FWD] == 0  # the plain version is no launch

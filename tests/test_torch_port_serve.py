@@ -125,8 +125,9 @@ def test_port_imports_no_jax():
         "import spatialalignmentnetwork_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'spatialalignmentnetwork_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'spatialalignmentnetwork_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -1,0 +1,301 @@
+"""The PyTorch port's Rec and None train steps against the JAX package, on
+the CPU.
+
+A tiny JAX CSModel (2 cascades, non-zero STN head so the warp moves the
+reference by sub-pixel amounts) is saved; the port loads the checkpoint,
+so both start from the same weights, BatchNorm statistics and mask. Then:
+
+  * step 0: the losses, and every gradient of the regime's nets against
+    `jax.grad` of the JAX package's `_regime_loss`. Tolerance: 1e-3 of the
+    leaf's largest gradient plus 1e-6 of the net's. The second term is a
+    noise floor: a conv bias that a BatchNorm follows has an exact
+    gradient of 0 (the norm removes it) and a dc_weight's gradient is a
+    sum that cancels, so both frameworks give rounding noise there.
+  * 3 `update()`s against 3 JAX `update()`s: losses (rtol 1e-4), the
+    parameters to the Adam bar of tests/test_train_step_parity.py (Adam's
+    first steps move every element by about +-lr whatever the gradient's
+    size, so sign noise shows: mean |diff| < 0.7 lr n, max < 2.5 lr n; the
+    noise-driven biases above get the max bar only), and net_T's running
+    statistics (rtol 1e-4; a running mean takes 0.1 of its conv bias each
+    step, so it also carries that bias's noise: atol lr).
+  * checkpoints both ways: the port's save loads in the JAX CSModel, and a
+    JAX `save(with_opt=True)` resumes in the port with Adam's moments.
+  * `chip_smoke.py`'s train and autograd phases run on the CPU.
+
+Inputs come from numpy seeds.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from spatialalignmentnetwork_tpu.engine.checkpoint import ckpt_load as jckpt_load
+from spatialalignmentnetwork_tpu.engine.checkpoint import flatten_tree
+from spatialalignmentnetwork_tpu.engine.config import Config as JaxConfig
+from spatialalignmentnetwork_tpu.engine.csmodel import CSModel as JaxCSModel
+from spatialalignmentnetwork_tpu.engine.csmodel import GRAD_NETS
+
+from spatialalignmentnetwork_tpu_torch import kernels
+from spatialalignmentnetwork_tpu_torch.engine import from_jax
+from spatialalignmentnetwork_tpu_torch.engine.config import Config
+from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+from spatialalignmentnetwork_tpu_torch.models.unet_lib import ConvBNAct
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LR = 1e-4
+STEPS = 3
+
+
+def _cfg(reg):
+    """tests/test_torch_port_serve.py::tiny_cfg with two cascades."""
+    return Config(
+        sparsity=0.25, lr=LR, shape=16, coils=1, reg=reg,
+        mask="equispaced", weight_smooth=1000.0, weight_gan=0.1,
+        weight_gan_sim=1.0, weight_sim=1.0, net_G_layers=(4, 8),
+        net_D_blocks=((4,), (8,)), net_T_layers=(4, 8), net_R_cascades=2,
+        net_R_chans=4, net_R_sens_chans=4, net_R_pools=1,
+        net_R_sens_pools=1,
+    )
+
+
+def _batch(seed, n=2, shape=16):
+    rng = np.random.default_rng(100 + seed)
+    mk = lambda: (rng.random((n, 1, shape, shape))
+                  + 1j * rng.random((n, 1, shape, shape))).astype(np.complex64)
+    return mk(), mk()
+
+
+def _copy(state):
+    # a JAX update donates its state: keep an independent copy
+    return jax.tree_util.tree_map(jnp.array, state)
+
+
+def _jax_entry(state, coll, name):
+    return {f"{coll}/{k}": np.asarray(v)
+            for k, v in flatten_tree(state[coll][name]).items()}
+
+
+def _port_params(tm, name, tensors=None):
+    """A port net's parameters (or per-parameter `tensors`) as a JAX
+    entry {'params/...': array}."""
+    net = getattr(tm, name)
+    if tensors is None:
+        tensors = dict(net.named_parameters())
+    entries = [e for e in tm._entries(name) if e[1].startswith("params/")]
+    return from_jax.to_jax_entries(tensors, entries)
+
+
+def _bn_biases(tm) -> set:
+    """JAX keys of the net_T conv biases that a BatchNorm follows."""
+    names = {f"{n}.conv.bias" for n, m in tm.net_T.named_modules()
+             if isinstance(m, ConvBNAct)}
+    return {j for t, j, _, _ in from_jax.stn_entries(tm.net_T) if t in names}
+
+
+def _assert_adam_bar(got, want, n, noise_keys=(), what=""):
+    for key, w in want.items():
+        diff = np.abs(np.asarray(got[key], np.float32) - w)
+        assert float(diff.max()) < 2.5 * LR * n, f"{what} {key}: max {diff.max():.2e}"
+        if key not in noise_keys:
+            assert float(diff.mean()) < 0.7 * LR * n, (
+                f"{what} {key}: mean {diff.mean():.2e}")
+
+
+@pytest.fixture(scope="module")
+def start(tmp_path_factory):
+    """A saved tiny JAX model and a copy of its state."""
+    jm = JaxCSModel(cfg=JaxConfig(**_cfg("Rec").to_dict()), seed=0)
+    head = jm.state["params"]["net_T"]["Conv_0"]
+    rng = np.random.default_rng(5)
+    head["kernel"] = jnp.asarray(
+        rng.standard_normal(head["kernel"].shape).astype(np.float32) * 0.05
+    )
+    head["bias"] = jnp.asarray(np.array([0.05, -0.03], np.float32))
+    path = str(tmp_path_factory.mktemp("ckpt") / "start")
+    jm.save(path)
+    return jm, _copy(jm.state), path
+
+
+@pytest.fixture(scope="module", params=["Rec", "None"])
+def run(request, start):
+    """Step-0 gradients and 3 updates of one regime, in both packages."""
+    regime = request.param
+    jm, state0, path = start
+    jm.cfg.reg = regime
+    jm.state = _copy(state0)
+    tm = CSModel(ckpt=path, cfg=_cfg(regime), device="cpu")
+
+    full, aux = _batch(0)
+    env = jm._prepare(jnp.asarray(full), jnp.asarray(aux), jm.state["pruned"])
+    params = jm.state["params"]
+
+    def loss_fn(train_params):
+        total, losses, _, _ = jm._regime_loss(
+            {**params, **train_params}, jm.state["stats"], env, regime
+        )
+        return total, losses
+
+    grads, jax_loss0 = jax.jit(jax.grad(loss_fn, has_aux=True))(
+        {k: params[k] for k in GRAD_NETS[regime]}
+    )
+    out = {
+        "regime": regime, "tm": tm,
+        "jax_grads": {name: {f"params/{k}": np.asarray(v)
+                             for k, v in flatten_tree(grads[name]).items()}
+                      for name in grads},
+        "jax_loss0": {k: float(v) for k, v in jax_loss0.items()},
+        "jax_losses": [], "port_losses": [],
+    }
+    kernels.reset_launches()
+    for step in range(STEPS):
+        full, aux = _batch(step)
+        tm.set_input(full, aux)
+        tm.update()
+        if step == 0:
+            out["port_grads"] = {
+                name: _port_params(tm, name, {
+                    k: p.grad for k, p in getattr(tm, name).named_parameters()
+                })
+                for name in GRAD_NETS[regime]
+            }
+            out["net_T_grad0"] = [p.grad for p in tm.net_T.parameters()]
+        out["port_losses"].append(tm.get_vis("scalars")["scalars"])
+        jm.set_input(full, aux)
+        jm.update()
+        out["jax_losses"].append(jm.get_vis("scalars")["scalars"])
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["jax_state"] = jm.state
+    return out
+
+
+def test_step0_losses_and_gradients_match_jax(run):
+    assert set(run["port_grads"]) == set(GRAD_NETS[run["regime"]])
+    assert set(run["port_losses"][0]) == {"loss_all", "loss_sim", "loss_smooth"}
+    for k, v in run["jax_loss0"].items():
+        np.testing.assert_allclose(run["port_losses"][0][k], v, rtol=1e-5, err_msg=k)
+    for name, want in run["jax_grads"].items():
+        got = run["port_grads"][name]
+        assert got.keys() == want.keys()
+        net_max = max(float(np.abs(w).max()) for w in want.values())
+        for key, w in want.items():
+            err = float(np.abs(got[key] - w).max())
+            assert err <= 1e-3 * float(np.abs(w).max()) + 1e-6 * net_max, (
+                f"{name} {key}: {err:.3g}, leaf max {np.abs(w).max():.3g}, "
+                f"net max {net_max:.3g}")
+    if run["regime"] == "None":  # the grid is detached: no gradient into net_T
+        assert all(g is None for g in run["net_T_grad0"])
+
+
+def test_three_updates_match_jax(run):
+    tm, jstate = run["tm"], run["jax_state"]
+    for step, (got, want) in enumerate(zip(run["port_losses"], run["jax_losses"])):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-4,
+                                       err_msg=f"step {step} {k}")
+    noise = _bn_biases(tm)
+    for name in ("net_T", "net_R"):
+        _assert_adam_bar(_port_params(tm, name), _jax_entry(jstate, "params", name),
+                         STEPS, noise, f"{run['regime']} {name}")
+    sd = tm.net_T.state_dict()
+    want = _jax_entry(jstate, "stats", "net_T")
+    for tkey, jkey, _, _ in from_jax.stn_entries(tm.net_T):
+        if jkey.startswith("stats/"):
+            np.testing.assert_allclose(sd[tkey].numpy(), want[jkey], rtol=1e-4,
+                                       atol=LR if jkey.endswith("/mean") else 0.0,
+                                       err_msg=jkey)
+    assert run["launches"] == {}  # CPU tensors take the plain versions
+
+
+def test_regimes_outside_the_slice_raise(tmp_path):
+    tm = CSModel(cfg=_cfg("Mixed"), device="cpu")
+    tm.set_input(*_batch(0))
+    with pytest.raises(NotImplementedError, match="net_G"):
+        tm.update()
+    tm.cfg.reg = "Rec"
+    tm.eval()
+    with pytest.raises(RuntimeError, match="train mode"):
+        tm.update()
+    with pytest.raises(ValueError, match="lr"):
+        CSModel(cfg=Config(**{**_cfg("Rec").to_dict(), "lr": 1e-3}), device="cpu")
+
+
+def test_port_checkpoint_loads_in_jax(start, tmp_path):
+    """After one port step (net_T and its statistics moved), the port's
+    checkpoint loads in the JAX CSModel and reconstructs as the port does
+    (the serving bar: rtol 1e-3, atol 1e-4)."""
+    _, _, path = start
+    tm = CSModel(ckpt=path, cfg=_cfg("Rec"), device="cpu")
+    tm.set_input(*_batch(0))
+    tm.update()
+    out = str(tmp_path / "port")
+    tm.save(out)
+    jm = JaxCSModel(ckpt=out)
+    loaded = jckpt_load(out)
+    np.testing.assert_array_equal(np.asarray(jm.state["pruned"]), tm.pruned.numpy())
+    for name in ("net_T", "net_R"):
+        got = _port_params(tm, name)
+        for key, v in got.items():
+            np.testing.assert_array_equal(loaded[name][key], v)
+    full, aux = _batch(7)
+    np.testing.assert_allclose(
+        tm.reconstruct(full, aux).numpy(), np.asarray(jm.reconstruct(full, aux)),
+        rtol=1e-3, atol=1e-4,
+    )
+
+
+def test_jax_checkpoint_with_opt_resumes_in_port(start, tmp_path):
+    """A JAX `save(with_opt=True)` after one step: the port restores
+    Adam's moments and step exactly, and its next step matches the JAX
+    next step (the Adam bar with n = 1)."""
+    jm, state0, _ = start
+    jm.cfg.reg = "Rec"
+    jm.state = _copy(state0)
+    jm.set_input(*_batch(0))
+    jm.update()
+    path = str(tmp_path / "jax_opt")
+    jm.save(path, with_opt=True)
+    tm = CSModel(ckpt=path, cfg=_cfg("Rec"), device="cpu")
+    back = str(tmp_path / "port_opt")
+    tm.save(back, with_opt=True)
+    want, got = jckpt_load(path)["opt_state"], jckpt_load(back)["opt_state"]
+    ours = {k for k in want if k.split("/")[0] in ("net_T", "net_R")}
+    assert set(got) == ours
+    for k in ours:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    full, aux = _batch(1)
+    tm.set_input(full, aux)
+    tm.update()
+    jm.set_input(full, aux)
+    jm.update()
+    for k, v in jm.get_vis("scalars")["scalars"].items():
+        np.testing.assert_allclose(tm.get_vis("scalars")["scalars"][k], v,
+                                   rtol=1e-4, err_msg=k)
+    for name in ("net_T", "net_R"):
+        _assert_adam_bar(_port_params(tm, name), _jax_entry(jm.state, "params", name),
+                         1, _bn_biases(tm), f"resumed {name}")
+
+
+def test_chip_smoke_train_and_autograd_phases_run_on_cpu():
+    """chip_smoke.py's train-step, autograd and whole-step phases on the CPU
+    at a small shape (full widths): their logic is exercised here, their
+    numbers only on a card."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    launches = chip_smoke.check_train(
+        np.random.default_rng(0), device="cpu", shape=32, batch=2
+    )
+    assert launches == {}  # CPU tensors take the plain versions
+    assert chip_smoke.check_autograd(
+        np.random.default_rng(1), device="cpu", shape=32, batch=2
+    ) == {}
+    chip_smoke.check_train_vs_cpu(np.random.default_rng(2), device="cpu", shape=32)
