@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving and training paths and its
+registration-loss library on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,10 +13,12 @@ failure:
      all at once;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and more (all padding modes, C = 2, a
-     non-square plane, the smallest SSIM plane, grids with out-of-range
-     coordinates), then its time beside its plain version, the one-call
-     PyTorch equivalent where there is one (a yardstick the port never
-     calls) and its bound on an H100 SXM;
+     non-square plane, the smallest SSIM and LNCC planes, grids with
+     out-of-range coordinates, MI values outside the bin range and 32
+     bins, the MI backward near the top bin held to float64), then its
+     time beside its plain version, the one-call PyTorch equivalent where
+     there is one (a yardstick the port never calls) and its bound on an
+     H100 SXM;
   4. full-width serving: `CSModel` at the default widths (320 x 320, 1
      coil, 4x equispaced), weights made from a numpy seed in the JAX
      package's checkpoint layout and carried over by `engine/from_jax`,
@@ -33,7 +35,14 @@ failure:
      d_img kernel;
   7. one train step on the card against the same step on the CPU: the
      losses, and every parameter's gradient held to the same step in
-     float64 on the CPU.
+     float64 on the CPU;
+  8. the registration losses at full width: lncc_loss, ms_lncc_loss,
+     mi_loss and ms_mi_loss of the target phantoms against the aux
+     phantoms warped by a learnable grid ([4, 1, 320, 320]), forward and
+     backward to image and grid, with cuDNN's TF32 at PyTorch's default
+     (the ms pyramid pins f32 itself); launch counts reset just before
+     and read just after (each loss launches its forward and backward
+     kernel once a scale); card against the CPU; ms per call.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -81,6 +90,33 @@ GRAD_TOL = 2e-3
 # warp's gradient reaches net_T at all is checked by check_train.
 STEP_GRAD_TOL = 1e-1
 LOSS_RTOL = 1e-4
+# registration losses, kernel vs plain on the card: the loss to 1e-5 (sums
+# in another order than cuDNN's and cuBLAS's), the gradients as a fraction
+# of the plain max |grad|
+LNCC_LOSS_ATOL = 1e-5
+LNCC_GRAD_TOL = 1e-4
+# ... on the phantoms, whose plateaus leave near-flat windows where I_var
+# and J_var are differences of near-equal sums: there f32 decides the LNCC
+# gradient only to about 1e-4 of its max on any device (both routes are
+# logged against float64)
+LNCC_FLAT_GRAD_TOL = 2e-3
+# MI kernel vs the plain version in float64 on the same f32 inputs (the
+# plain version in f32 on the card sums the Gram over 102,400 pixels in
+# cuBLAS and lands further from float64 than the kernel; it is logged):
+# the loss to 1e-5, the statistics and gradients as a fraction of max
+MI_LOSS_ATOL = 1e-5
+MI_STATS_TOL = 2e-5
+MI_GRAD_TOL = 5e-5
+# the MI backward near the top bin (values in [0.9, 1]) against float64
+# autograd of the plain forward, as a fraction of max |grad|: the bar the
+# CPU test sets for the closed form (the cancelling form misses it)
+MI_F64_TOL = 3e-6
+# the four losses card vs CPU through the warp (loss values of order 1),
+# gradients as a fraction of the CPU's max |grad|; both are also logged
+# against float64 on the CPU
+REG_LOSS_ATOL = 1e-5
+REG_GRAD_TOL = 2e-3
+REG_ITERS = 10
 
 
 def log(*args):
@@ -398,6 +434,207 @@ def check_ssim(rng):
               100 * px),
         entry(kssim.BWD, "ssim.cu", "ssim.py:204", err["bwd"], ms_bwd, b_bwd,
               200 * px),
+    ]
+
+
+def registration_pair(rng, n, size):
+    """Magnitude images [n, 1, size, size] of the target and aux phantoms,
+    scaled to [0, 1], with a tissue texture (a smooth random field of 10%
+    relative amplitude at an 8-pixel scale) and complex Gaussian noise of
+    0.02 in the foreground, and an exactly zero background, as in masked
+    MRI. (Without texture the ellipses are near-flat, the more so at the
+    coarse scales of the ms losses, and there the f32 LNCC gradient is
+    rounding noise on any device: I_var is a difference of near-equal
+    sums.)"""
+    import torch
+
+    def magnitude(x):
+        nz = 0.02 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+        field = smooth_field(rng, n, size, size, coarse=size // 8)[..., :1]
+        tissue = np.abs(x) * (1.0 + 0.1 * field.permute(0, 3, 1, 2).numpy())
+        img = np.where(x != 0, np.abs(tissue + nz), 0.0)
+        return torch.from_numpy((img / img.max()).astype(np.float32)).contiguous()
+
+    full, aux = phantoms(rng, n, size)
+    return magnitude(full), magnitude(aux)
+
+
+def check_lncc(rng):
+    """The LNCC forward and backward kernels vs their plain versions on the
+    card; returns their `kernels` entries (without the launch counts)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+
+    dev = torch.device("cuda")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    one = torch.ones((), device=dev)
+    cases = [((TRAIN_BATCH, 1, SHAPE, SHAPE), 9, "phantoms"),
+             ((TRAIN_BATCH, 1, SHAPE, SHAPE), 9, "random"),
+             ((TRAIN_BATCH, 2, SHAPE, SHAPE), 9, "random"),
+             ((2, 1, 317, 301), 9, "random"),
+             ((1, 1, 7, 7), 9, "random"),
+             ((TRAIN_BATCH, 1, SHAPE, SHAPE), 5, "random")]
+    for shape, win, kind in cases:
+        if kind == "phantoms":
+            I, J = (t.to(dev) for t in registration_pair(rng, shape[0], shape[2]))
+        else:
+            I = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+            J = (0.6 * I + 0.4 * torch.from_numpy(
+                rng.random(shape).astype(np.float32)).to(dev)).contiguous()
+        px = int(np.prod(shape))
+        got = klncc.lncc_fwd_cuda(I, J, win)
+        want = klncc.lncc_fwd_plain(I, J, win)
+        e = abs(float(got.sum() - want.sum())) / px  # on the loss
+        if not e <= LNCC_LOSS_ATOL:
+            raise AssertionError(f"lncc_fwd {shape} win {win} {kind}: loss differs by {e}")
+        err["fwd"] = max(err["fwd"], e)
+        dI, dJ = klncc.lncc_bwd_cuda(I, J, one, win)
+        wI, wJ = klncc.lncc_bwd_plain(I, J, one, win)
+        eb = max(rel_err(dI, wI), rel_err(dJ, wJ))
+        tol = LNCC_FLAT_GRAD_TOL if kind == "phantoms" else LNCC_GRAD_TOL
+        if kind == "phantoms":
+            fI, fJ = klncc.lncc_bwd_plain(I.double(), J.double(), one.double(), win)
+            log(f"lncc_bwd {kind} against float64: kernel "
+                f"{max(rel_err(dI.double(), fI), rel_err(dJ.double(), fJ)):.3g}, "
+                f"plain f32 {max(rel_err(wI.double(), fI), rel_err(wJ.double(), fJ)):.3g} "
+                "of max |grad|")
+        if not eb <= tol:
+            raise AssertionError(f"lncc_bwd {shape} win {win} {kind}: {eb}")
+        err["bwd"] = max(err["bwd"], float((dI - wI).abs().max()),
+                         float((dJ - wJ).abs().max()))
+        log(f"lncc {list(shape)} win {win} {kind}: loss |kernel-plain| {e:.3g} "
+            f"(tol {LNCC_LOSS_ATOL}), dI/dJ max|kernel-plain|/max|plain| {eb:.3g} "
+            f"(tol {tol}); loss {-float(got.sum()) / px:.6f}")
+
+    shape = (TRAIN_BATCH, 1, SHAPE, SHAPE)
+    sets = []
+    for _ in range(20):  # 20 x 3.3 MB of inputs > 50 MB of L2
+        I = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        sets.append((I, (I * 0.9 + 0.05).contiguous(), one))
+    ms_fwd, t_fwd = time_all({
+        "plain": lambda i, j, g: klncc.lncc_fwd_plain(i, j),
+        "kernel": lambda i, j, g: klncc.lncc_fwd_cuda(i, j),
+    }, sets)
+    ms_bwd, t_bwd = time_all({
+        "plain": lambda i, j, g: klncc.lncc_bwd_plain(i, j, g),
+        "kernel": lambda i, j, g: klncc.lncc_bwd_cuda(i, j, g),
+    }, sets)
+    px = int(np.prod(shape))
+    b_fwd = 8 * px + 4 * shape[0] * shape[1]  # I, J read; per-plane sums
+    b_bwd = 16 * px + 4  # I, J (and g) read; dI, dJ written
+    win = 9
+    # operations a pixel: 3 products, 5 separable sums of (win - 1) adds
+    # each way, 26 for cc and its sum; the backward adds 5 box sums of the
+    # coefficient maps, 32 for the maps and 13 for dI, dJ
+    f_fwd = (10 * (win - 1) + 29) * px
+    f_bwd = (20 * (win - 1) + 48) * px
+    log(f"lncc_fwd timing {list(shape)} win 9: {t_fwd} ms ({b_fwd / 1e6:.2f} MB); "
+        f"lncc_bwd: {t_bwd} ms ({b_bwd / 1e6:.2f} MB); no one-call PyTorch "
+        "equivalent")
+    return [
+        entry(klncc.FWD, "lncc.cu", "lncc.py:57", err["fwd"], ms_fwd, b_fwd, f_fwd),
+        entry(klncc.BWD, "lncc.cu", "lncc.py:117", err["bwd"], ms_bwd, b_bwd, f_bwd),
+    ]
+
+
+def check_mi(rng):
+    """The MI forward and backward kernels vs their plain versions on the
+    card, and the backward near the top bin against float64; returns their
+    `kernels` entries (without the launch counts)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
+
+    dev = torch.device("cuda")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    one = torch.ones((), device=dev)
+    full = (TRAIN_BATCH, 1, SHAPE, SHAPE)
+    cases = [(full, (0.0, 1.0), {}, "phantoms"),
+             (full, (0.0, 1.0), {}, "random"),
+             ((TRAIN_BATCH, 2, SHAPE, SHAPE), (0.0, 1.0), {}, "random"),
+             ((2, 1, 317, 301), (0.0, 1.0), {}, "random"),
+             ((1, 1, 7, 7), (0.0, 1.0), {}, "random"),
+             (full, (-0.3, 1.3), {}, "random"),
+             (full, (-0.5, 1.5), dict(bins=32, minv=-0.5, maxv=1.5), "random")]
+    for shape, (lo, hi), kw, kind in cases:
+        if kind == "phantoms":
+            I, J = (t.to(dev) for t in registration_pair(rng, shape[0], shape[2]))
+        else:
+            I = (lo + (hi - lo) * torch.from_numpy(rng.random(shape).astype(np.float32))).to(dev)
+            J = (I + 0.1 * torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32)).to(dev)).clamp(lo, hi).contiguous()
+        loss, stats = kmi.mi_fwd_cuda(I, J, **kw)
+        dI, dJ = kmi.mi_bwd_cuda(I, J, stats, one, **kw)
+        # the plain version in float64 and, for the log, in f32
+        want, wstats = kmi.mi_fwd_plain(I.double(), J.double(), **kw)
+        wI, wJ = kmi.mi_bwd_plain(I.double(), J.double(), wstats, one.double(), **kw)
+        e = abs(float(loss.double() - want))
+        es = rel_err(stats.double(), wstats)
+        eb = max(rel_err(dI.double(), wI), rel_err(dJ.double(), wJ))
+        ploss, pstats = kmi.mi_fwd_plain(I, J, **kw)
+        pI, pJ = kmi.mi_bwd_plain(I, J, pstats, one, **kw)
+        log(f"mi {list(shape)} values [{lo}, {hi}] {kw or 'bins 64'} {kind}, "
+            f"against the plain version in float64: kernel loss {e:.3g} (tol "
+            f"{MI_LOSS_ATOL}), stats {es:.3g} (tol {MI_STATS_TOL}), dI/dJ {eb:.3g} "
+            f"(tol {MI_GRAD_TOL}) of max; plain f32 loss "
+            f"{abs(float(ploss.double() - want)):.3g}, stats "
+            f"{rel_err(pstats.double(), wstats):.3g}, dI/dJ "
+            f"{max(rel_err(pI.double(), wI), rel_err(pJ.double(), wJ)):.3g}; "
+            f"loss {float(loss):.6f}")
+        if not (e <= MI_LOSS_ATOL and es <= MI_STATS_TOL and eb <= MI_GRAD_TOL):
+            raise AssertionError(f"mi {shape} {kw} {kind}: loss {e}, stats {es}, "
+                                 f"grads {eb}")
+        err["fwd"] = max(err["fwd"], e)
+        err["bwd"] = max(err["bwd"], float((dI.double() - wI).abs().max()),
+                         float((dJ.double() - wJ).abs().max()))
+
+    # near the top bin the pixel gradient must subtract before it reduces
+    I = (0.9 + 0.1 * torch.from_numpy(rng.random(full).astype(np.float32))).to(dev)
+    J = (I + 0.01 * torch.from_numpy(
+        rng.standard_normal(full).astype(np.float32)).to(dev)).clamp(0.9, 1.0).contiguous()
+    stats = kmi.mi_fwd_cuda(I, J)[1]
+    dI, dJ = kmi.mi_bwd_cuda(I, J, stats, one)
+    pI, pJ = kmi.mi_bwd_plain(I, J, kmi.mi_fwd_plain(I, J)[1], one)
+    I64 = I.double().requires_grad_()
+    J64 = J.double().requires_grad_()
+    kmi.mi_fwd_plain(I64, J64)[0].backward()
+    e64 = max(rel_err(dI.double(), I64.grad), rel_err(dJ.double(), J64.grad))
+    p64 = max(rel_err(pI.double(), I64.grad), rel_err(pJ.double(), J64.grad))
+    log(f"mi_bwd near the top bin {list(full)}: kernel vs float64 {e64:.3g}, plain "
+        f"f32 vs float64 {p64:.3g} of max |grad| (tol {MI_F64_TOL})")
+    if not e64 <= MI_F64_TOL:
+        raise AssertionError(f"mi_bwd near the top bin: {e64} of max |grad| from f64")
+
+    sets = []
+    for _ in range(20):  # 20 x 3.3 MB of inputs > 50 MB of L2
+        I = torch.from_numpy(rng.random(full).astype(np.float32)).to(dev)
+        J = (I * 0.9 + 0.05).contiguous()
+        sets.append((I, J, kmi.mi_fwd_cuda(I, J)[1], one))
+    ms_fwd, t_fwd = time_all({
+        "plain": lambda i, j, s, g: kmi.mi_fwd_plain(i, j),
+        "kernel": lambda i, j, s, g: kmi.mi_fwd_cuda(i, j),
+    }, sets)
+    ms_bwd, t_bwd = time_all({
+        "plain": lambda i, j, s, g: kmi.mi_bwd_plain(i, j, s, g),
+        "kernel": lambda i, j, s, g: kmi.mi_bwd_cuda(i, j, s, g),
+    }, sets)
+    px = int(np.prod(full))
+    B = 64
+    n_stats = TRAIN_BATCH * (2 * B + B * B)
+    b_fwd = 8 * px + 4 * n_stats + 4  # I, J read; stats and the loss written
+    b_bwd = 8 * px + 4 * n_stats + 4 + 8 * px  # I, J, stats, g read; dI, dJ written
+    # operations a pixel pair: the forward's responses (5 each, both
+    # images), joint Gram (2 B^2) and marginals; the backward's two
+    # B x B matrix-vector products (4 B^2), two sets of responses and the
+    # per-bin sum (6 a bin, both images)
+    f_fwd = (2 * B * B + 12 * B) * px
+    f_bwd = (4 * B * B + 32 * B) * px
+    log(f"mi_fwd timing {list(full)}: {t_fwd} ms ({f_fwd / 1e9:.2f} GFLOP); mi_bwd: "
+        f"{t_bwd} ms ({f_bwd / 1e9:.2f} GFLOP); no one-call PyTorch equivalent")
+    return [
+        entry(kmi.FWD, "mi.cu", "mi.py:106", err["fwd"], ms_fwd, b_fwd, f_fwd),
+        entry(kmi.BWD, "mi.cu", "mi.py:246", err["bwd"], ms_bwd, b_bwd, f_bwd),
     ]
 
 
@@ -746,6 +983,102 @@ def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2):
                                  f"f64 by {e} of the net's max at {leaf}")
 
 
+def check_registration(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """The four registration losses of (target, warp(aux, grid)) with aux
+    and grid learnable, on `device` (cuDNN's TF32 at PyTorch's default) and
+    on the CPU; returns (the launch counts of the device run, {loss: ms per
+    forward + backward call on `device`: "wall" from a host loop as a
+    caller sees it, and on a card "device", the same calls queued behind a
+    device sleep so the host's launch overhead is hidden}). (The CPU tests
+    run it at a small shape on the CPU, where no kernel launches.)"""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.ops.grid_sample import warp
+    from spatialalignmentnetwork_tpu_torch.ops.lncc import lncc_loss, ms_lncc_loss
+    from spatialalignmentnetwork_tpu_torch.ops.mi import mi_loss, ms_mi_loss
+
+    losses = {"lncc_loss": lncc_loss, "ms_lncc_loss": ms_lncc_loss,
+              "mi_loss": mi_loss, "ms_mi_loss": ms_mi_loss}
+    target, aux = registration_pair(rng, batch, shape)
+    grid = sample_grid(rng, batch, shape, shape)
+    is_cuda = torch.device(device).type == "cuda"
+
+    def run(dev, dtype=torch.float32):
+        out = {}
+        t = target.to(dev, dtype)
+        for name, fn in losses.items():
+            # copies: on the CPU .to() returns the tensor itself, whose
+            # .grad the next loss would add to
+            a = aux.to(dev, dtype, copy=True).requires_grad_()
+            g = grid.to(dev, copy=True).requires_grad_()
+            loss = fn(t, warp(a, g))
+            loss.backward()
+            out[name] = [x.double().cpu() for x in (loss.detach(), a.grad, g.grad)]
+        return out
+
+    def time_loss(fn, t, x):
+        def call():
+            xi = x.detach().requires_grad_()
+            fn(t, xi).backward()
+        for _ in range(2):
+            call()
+        if is_cuda:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(REG_ITERS):
+            call()
+        if not is_cuda:
+            return {"wall": (time.perf_counter() - t0) * 1e3 / REG_ITERS}
+        end.record()
+        end.synchronize()
+        return {"wall": start.elapsed_time(end) / REG_ITERS,
+                "device": time_ms(call, [()], iters=REG_ITERS, warmup=2)}
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        kernels.reset_launches()
+        got = run(device)
+        launches = dict(kernels.LAUNCHES)
+        with torch.no_grad():
+            warped = warp(aux.to(device), grid.to(device))
+        ms = {name: time_loss(fn, target.to(device), warped) for name, fn in losses.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    want = run("cpu")
+    ref = run("cpu", torch.float64)  # the losses in float64 (the warp's grid in f32)
+    log(f"registration losses [{batch},1,{shape},{shape}] on {device}: ms per "
+        f"forward + backward {ms}; launches {launches}")
+    for name in losses:
+        e_loss = abs(float(got[name][0] - want[name][0]))
+        e_img = rel_err(got[name][1], want[name][1])
+        e_grid = rel_err(got[name][2], want[name][2])
+        f64 = {k: (rel_err(v[name][1], ref[name][1]), rel_err(v[name][2], ref[name][2]))
+               for k, v in ((device, got), ("cpu", want))}
+        log(f"{name} on {device} vs cpu: loss {float(want[name][0]):.6f} |diff| "
+            f"{e_loss:.3g} (tol {REG_LOSS_ATOL}), d_aux {e_img:.3g}, d_grid "
+            f"{e_grid:.3g} of max |grad| (tol {REG_GRAD_TOL}); (d_aux, d_grid) against "
+            f"float64 on the cpu: {f64}")
+        finite = all(bool(torch.isfinite(x).all()) for x in got[name])
+        if not (finite and e_loss <= REG_LOSS_ATOL and e_img <= REG_GRAD_TOL
+                and e_grid <= REG_GRAD_TOL):
+            raise AssertionError(f"{name}: card and CPU differ")
+    if is_cuda:
+        scales = 1 + 3  # the single-scale loss, then the three scales of ms
+        want_launches = {k: scales for k in (
+            "lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd")}
+        want_launches.update({k: len(losses) for k in (
+            "grid_sample_fwd", "grid_sample_bwd_dgrid", "grid_sample_bwd_dimg")})
+        if launches != want_launches:
+            raise AssertionError(f"registration launches {launches}, expected "
+                                 f"{want_launches}")
+    return launches, ms
+
+
 def main():
     import torch
 
@@ -758,15 +1091,23 @@ def main():
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-    build_kernels(["grid_sample.cu", "ssim.cu"])
+    build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu"])
     rng = np.random.default_rng(0)
-    entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng)]
+    entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng),
+               *check_lncc(rng), *check_mi(rng)]
     main_paths = [check_serving(rng), check_train(rng)]
     autograd = check_autograd(rng)
     check_train_vs_cpu(rng)
+    registration = check_registration(rng)[0]
     for e in entries:
-        # serving and training are the main paths; d_img runs on its own
-        paths = [autograd] if e["name"] == "grid_sample_bwd_dimg" else main_paths
+        # serving and training are the main paths; d_img runs on its own,
+        # the loss kernels on the registration-loss library's entry points
+        if e["name"] == "grid_sample_bwd_dimg":
+            paths = [autograd]
+        elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
+            paths = [registration]
+        else:
+            paths = main_paths
         e["launches"] = sum(p.get(e["name"], 0) for p in paths)
         if e["launches"] == 0:
             raise AssertionError(f"{e['name']} was not launched on its path")

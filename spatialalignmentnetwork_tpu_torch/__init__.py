@@ -8,7 +8,8 @@ TPU kernel on a ported path is a hand-written CUDA kernel under `csrc/`,
 built at first use and bound through `kernels/`.
 
 Layout:
-    ops/       fft/rss, k-space masks, grid sampling
+    ops/       fft/rss, k-space masks, grid sampling, window sums, the
+               SSIM loss and the LNCC and MI registration losses
     models/    VarNet + NormUnet, spatial transformer, LibUNet
     kernels/   ctypes bindings of the CUDA kernels, launch counts
     csrc/      CUDA C++ sources (sm_90a)

@@ -56,6 +56,29 @@ def stream(t) -> int:
         return torch.cuda.current_stream().cuda_stream
 
 
+def check_f32_cuda(name: str, *tensors):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor, what
+    the `name` kernels take."""
+    import torch
+
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the {name} kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel inputs must be contiguous")
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
+
+
+def upstream(name: str, gout, like):
+    """A loss's upstream gradient as the one contiguous float32 value the
+    `name` backward kernels read on the device of `like`; raises otherwise."""
+    if gout.numel() != 1 or gout.device != like.device:
+        raise ValueError("the upstream gradient must be one value on the inputs' device")
+    check_f32_cuda(name, gout.reshape(()))
+    return gout.reshape(()).contiguous()
+
+
 def check_launch(name: str, rc: int):
     """Raise on a launch's cudaError; else count the launch under `name`."""
     if rc != 0:

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.window import window_sum2d
-from . import check_launch, load, on_card, stream
+from . import check_f32_cuda, check_launch, load, on_card, stream, upstream
 
 FWD = "ssim_fwd"
 BWD = "ssim_bwd"
@@ -110,13 +110,7 @@ def _check(X: torch.Tensor, Y: torch.Tensor):
 
 
 def _check_cuda(*tensors: torch.Tensor):
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the ssim kernels take float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("ssim kernel inputs must be contiguous")
+    check_f32_cuda("ssim", *tensors)
     n, c, h, w = tensors[0].shape
     if n * c * h * w >= 2**31 or 4 * n * c * (h - WIN + 1) * (w - WIN + 1) >= 2**31:
         raise ValueError("ssim kernels take fewer than 2^31 elements")
@@ -148,17 +142,13 @@ def ssim_bwd_cuda(X: torch.Tensor, Y: torch.Tensor, gout: torch.Tensor):
     (a 0-dim f32 tensor on the same card)."""
     _check(X, Y)
     _check_cuda(X, Y)
-    if gout.numel() != 1 or gout.device != X.device:
-        raise ValueError("the upstream gradient must be one value on X's device")
-    if gout.dtype != torch.float32:
-        raise TypeError(f"the ssim kernels take float32, got {gout.dtype}")
+    g = upstream("ssim", gout, X)
     n, c, h, w = X.shape
     coef = torch.empty(4 * n * c * (h - WIN + 1) * (w - WIN + 1),
                        dtype=torch.float32, device=X.device)
     dX = torch.empty_like(X)
     dY = torch.empty_like(Y)
     valid = (h - WIN + 1) * (w - WIN + 1)
-    g = gout.reshape(()).contiguous()
     rc = _launcher("san_ssim_bwd")(
         X.data_ptr(), Y.data_ptr(), coef.data_ptr(), g.data_ptr(),
         1.0 / (n * c * valid * WIN * WIN), dX.data_ptr(), dY.data_ptr(),
