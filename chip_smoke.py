@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths and its
-registration-loss library on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths, its
+registration-loss library and its 3x3 conv on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,10 @@ failure:
      shapes the paths give it and more (all padding modes, C = 2, a
      non-square plane, the smallest SSIM and LNCC planes, grids with
      out-of-range coordinates, MI values outside the bin range and 32
-     bins, the MI backward near the top bin held to float64), then its
+     bins, the MI backward near the top bin held to float64; the 3x3 conv
+     forward and input gradient, f32 and bf16, held to float64 on every
+     conv of the ladder of phase 9 and on ragged planes and channels), then
+     its
      time beside its plain version, the one-call PyTorch equivalent where
      there is one (a yardstick the port never calls) and its bound on an
      H100 SXM;
@@ -42,7 +46,15 @@ failure:
      backward to image and grid, with cuDNN's TF32 at PyTorch's default
      (the ms pyramid pins f32 itself); launch counts reset just before
      and read just after (each loss launches its forward and backward
-     kernel once a scale); card against the CPU; ms per call.
+     kernel once a scale); card against the CPU; ms per call;
+  9. the conv ladder at full width: `conv3x3_s2d` forward and backward
+     (f32) and forward (bf16) on every distinct 3x3 conv of one cascade
+     NormUnet and of the sensitivity NormUnet at batch 8 and 320 x 320,
+     launch counts reset just before and read just after (exactly 2 f32
+     launches a shape: the forward and the input gradient), outputs and
+     gradients held to float64; then each shape's kernel time beside
+     cuDNN's (`F.conv2d` on a channels-last view, TF32 off; a yardstick
+     the port never calls) and its bound, and one cascade's totals.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -60,6 +72,7 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores
+BF16_FLOPS = 989e12  # tensor cores, dense
 
 SHAPE = 320
 BATCH = 8
@@ -117,6 +130,20 @@ MI_F64_TOL = 3e-6
 REG_LOSS_ATOL = 1e-5
 REG_GRAD_TOL = 2e-3
 REG_ITERS = 10
+# 3x3 conv kernel against its plain version in float64 on the same inputs,
+# as a fraction of max |out|: f32 sums of up to 9 x 576 products in a
+# fixed order (bf16: one bf16 ulp, BF16_RTOL, beside it)
+CONV_TOL = 1e-5
+# the weight gradient (cuDNN's f32 backward-filter, TF32 off, summing
+# 8 x 320 x 320 products a weight in an algorithm of its choosing) against
+# float64, as a fraction of max |dW|: a check of the call, not of cuDNN
+CONV_DW_TOL = 1e-3
+# the 3x3 convs of the port's NormUnets: (in channels, chans), 4 pools
+CONV_LADDER = {"cascade": (3, 18), "sensitivity": (2, 8)}
+CONV_POOLS = 4
+# small and ragged cases beside the ladder: (N, H, W, Cin, Cout)
+CONV_EDGES = [(2, 40, 24, 4, 8), (1, 40, 24, 18, 2), (3, 2, 2, 5, 7),
+              (2, 20, 36, 9, 65), (2, 40, 24, 3, 2), (1, 10, 10, 576, 288)]
 
 
 def log(*args):
@@ -275,8 +302,15 @@ def check_grid_sample(rng):
                  ms, nbytes, flops)
 
 
-def entry(name, source, replaces, max_err, ms, nbytes, flops):
+def bound(nbytes, flops, peak=F32_FLOPS):
+    """(least ms for the work on an H100 SXM, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def entry(name, source, replaces, max_err, ms, nbytes, flops, peak=F32_FLOPS):
     """One kernel's line of the `kernels` JSON (without the launches)."""
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     return {
         "name": name,
         "route": "cuda",
@@ -285,9 +319,8 @@ def entry(name, source, replaces, max_err, ms, nbytes, flops):
         "max_abs_err": max_err,
         "ms": ms["kernel"],
         "plain_ms": ms["plain"],
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS
-        else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": ms.get("library"),
     }
 
@@ -1079,6 +1112,208 @@ def check_registration(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     return launches, ms
 
 
+# ------------------------------------------------------------- 3x3 conv
+def bf16_close(got, want, scale):
+    """Whether a bf16 result is within one bf16 ulp (BF16_RTOL) of `want`,
+    the float64 result rounded to bf16, beside the f32 bar CONV_TOL x
+    `scale` for the order of the f32 sum."""
+    return bool(((got - want).abs() <= CONV_TOL * scale + BF16_RTOL * want.abs()).all())
+
+
+def unet_convs(in_chans, chans, pools, size):
+    """Each 3x3 conv of the port's U-Net (models/unet.py) on a size x size
+    input, in the order a forward runs them: [(H, Cin, Cout)]. Encoder
+    levels and the bottleneck run (in -> ch, ch -> ch), a 2x2 pool after
+    each level; decoder levels run on the upsampled tensor concatenated
+    with its skip (2 ch -> ch, ch -> ch)."""
+    convs, cin, ch, h = [], in_chans, chans, size
+    for _ in range(pools):
+        convs += [(h, cin, ch), (h, ch, ch)]
+        cin, ch, h = ch, 2 * ch, h // 2
+    convs += [(h, cin, ch), (h, ch, ch)]
+    for _ in range(pools):
+        ch, h = ch // 2, 2 * h
+        convs += [(h, 2 * ch, ch), (h, ch, ch)]
+    return convs
+
+
+def conv_ladder(size):
+    """[(net, H, Cin, Cout)]: each distinct 3x3 conv of the cascade and the
+    sensitivity NormUnet, in the order they first run."""
+    out = []
+    for net, (in_chans, chans) in CONV_LADDER.items():
+        for conv in unet_convs(in_chans, chans, CONV_POOLS, size):
+            if (net, *conv) not in out:
+                out.append((net, *conv))
+    return out
+
+
+def check_conv(rng):
+    """The 3x3 conv kernel, forward and input gradient (the same kernel on
+    the rotated weights), f32 and bf16, against its plain version in
+    float64 on the same inputs, on every ladder conv at batch 8 and on
+    CONV_EDGES; returns {dtype: max |kernel - plain|}."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
+    cases = [(BATCH, h, h, cin, cout) for _, h, cin, cout in conv_ladder(SHAPE)]
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for n, h, w, cin, cout in cases + CONV_EDGES:
+        x = torch.randn((n, h, w, cin), device=dev, generator=gen)
+        g = torch.randn((n, h, w, cout), device=dev, generator=gen)
+        w3 = torch.randn((3, 3, cin, cout), device=dev, generator=gen) / (9 * cin) ** 0.5
+        rel = {}
+        for dtype in err:
+            for part, a, b in (("out", x, w3), ("dx", g, kconv.rotate(w3))):
+                a, b = a.to(dtype), b.to(dtype)
+                got = kconv.conv3x3_cuda(a, b).double()
+                want = kconv.conv3x3_plain(a.double(), b.double())
+                scale = float(want.abs().max())
+                if dtype == torch.bfloat16:
+                    want = want.to(dtype).double()
+                    ok = bf16_close(got, want, scale)
+                else:
+                    ok = float((got - want).abs().max()) <= CONV_TOL * scale
+                rel[f"{str(dtype)[6:]} {part}"] = rel_err(got, want)
+                err[dtype] = max(err[dtype], float((got - want).abs().max()))
+                if not ok:
+                    raise AssertionError(f"conv3x3 [{n},{h},{w},{cin}]->{cout} {dtype} "
+                                         f"{part}: {rel_err(got, want)} of max")
+        log(f"conv3x3 [{n},{h},{w},{cin}]->{cout}: max|kernel-plain f64|/max|plain| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f" (tol {CONV_TOL}; bf16 one ulp beside it)")
+    return err
+
+
+def check_conv_ladder(rng, device="cuda", shape=SHAPE, batch=BATCH):
+    """`conv3x3_s2d` forward and backward in f32, and forward in bf16, on
+    every distinct conv of the ladder, held to float64; returns the launch
+    counts of that run. (The CPU tests run it at a small plane on the CPU,
+    where no kernel launches.)"""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+
+    dev = torch.device(device)
+    is_cuda = dev.type == "cuda"
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
+    shapes = conv_ladder(shape)
+    worst = {"out": 0.0, "dx": 0.0, "dW": 0.0, "bf16 out": 0.0}
+    kernels.reset_launches()
+    for net, h, cin, cout in shapes:
+        before = kernels.LAUNCHES[kconv.NAME]
+        x = torch.randn((batch, h, h, cin), device=dev, generator=gen).requires_grad_()
+        w3 = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
+              / (9 * cin) ** 0.5).requires_grad_()
+        g = torch.randn((batch, h, h, cout), device=dev, generator=gen)
+        out = kconv.conv3x3_s2d(x, w3)
+        out.backward(g)
+        xb, wb = x.detach().bfloat16(), w3.detach().bfloat16()
+        outb = kconv.conv3x3_s2d(xb, wb)
+        n_f32 = kernels.LAUNCHES[kconv.NAME] - before
+        if is_cuda and n_f32 != 2:
+            raise AssertionError(f"conv {net} [{batch},{h},{h},{cin}]->{cout}: {n_f32} "
+                                 "f32 launches, expected 2 (forward, input gradient)")
+        for t, want_shape in ((out, (batch, h, h, cout)), (outb, (batch, h, h, cout)),
+                              (x.grad, x.shape), (w3.grad, w3.shape)):
+            if tuple(t.shape) != tuple(want_shape) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"conv {net} [{batch},{h},{h},{cin}]->{cout}: "
+                                     f"bad output {tuple(t.shape)}")
+        # float64: the plain forward and its autograd
+        x64 = x.detach().double().requires_grad_()
+        w64 = w3.detach().double().requires_grad_()
+        want = kconv.conv3x3_plain(x64, w64)
+        want.backward(g.double())
+        wantb = kconv.conv3x3_plain(xb.double(), wb.double())
+        scale_b = float(wantb.abs().max())
+        wantb = wantb.bfloat16().double()
+        rel = {"out": rel_err(out.detach().double(), want.detach()),
+               "dx": rel_err(x.grad.double(), x64.grad),
+               "dW": rel_err(w3.grad.double(), w64.grad),
+               "bf16 out": rel_err(outb.double(), wantb)}
+        if not (rel["out"] <= CONV_TOL and rel["dx"] <= CONV_TOL
+                and rel["dW"] <= CONV_DW_TOL and bf16_close(outb.double(), wantb, scale_b)):
+            raise AssertionError(f"conv {net} [{batch},{h},{h},{cin}]->{cout} against "
+                                 f"float64: {rel}")
+        worst = {k: max(v, rel[k]) for k, v in worst.items()}
+    launches = dict(kernels.LAUNCHES)
+    log(f"conv ladder on {device}: {len(shapes)} shapes at batch {batch}, "
+        f"{shape}x{shape}; worst max|diff|/max|float64| {worst} (tol {CONV_TOL}, "
+        f"dW {CONV_DW_TOL}, bf16 one ulp beside it); launches {launches}")
+    if is_cuda:
+        want_launches = {kconv.NAME: 2 * len(shapes), kconv.NAME_BF16: len(shapes)}
+        if launches != want_launches:
+            raise AssertionError(f"conv ladder launches {launches}, expected "
+                                 f"{want_launches}")
+    return launches
+
+
+def time_conv_ladder(rng, err):
+    """Each ladder conv's forward at batch 8: the kernel beside cuDNN
+    (`F.conv2d` on a channels-last view of the same NHWC tensor; f32 with
+    TF32 off, and bf16) and its bound; then one NormUnet forward's totals
+    for each net. Returns the `kernels` entries of the f32 and bf16 kernel
+    (without the launch counts), timed at [8, 320, 320, 18] -> 18."""
+    import torch
+    import torch.nn.functional as F
+
+    from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+    from spatialalignmentnetwork_tpu_torch.ops.window import f32_convs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
+    kinds = ((torch.float32, "f32", F32_FLOPS, kconv.NAME),
+             (torch.bfloat16, "bf16", BF16_FLOPS, kconv.NAME_BF16))
+    rows, entries = {}, []
+    for net, h, cin, cout in conv_ladder(SHAPE):
+        px = BATCH * h * h
+        flops = 2 * px * 9 * cin * cout
+        headline = (net, h, cin, cout) == ("cascade", SHAPE, 18, 18)
+        row = {}
+        for dtype, tag, peak, name in kinds:
+            size = torch.finfo(dtype).bits // 8
+            count = min(160, max(2, -(-64_000_000 // (size * px * cin))))  # > 50 MB of L2
+            xs = torch.randn((count, BATCH, h, h, cin), device=dev, generator=gen).to(dtype)
+            w3 = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
+                  / (9 * cin) ** 0.5).to(dtype)
+            w_cl = w3.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            fns = {"kernel": lambda x: kconv.conv3x3_cuda(x, w3),
+                   "library": lambda x: F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1)}
+            if headline:
+                fns["plain"] = lambda x: kconv.conv3x3_plain(x, w3)
+            with f32_convs():
+                ms, _ = time_all(fns, [(x,) for x in xs])
+            del xs
+            nbytes = size * (px * cin + 9 * cin * cout + px * cout)
+            row[tag] = (ms, *bound(nbytes, flops, peak))
+            if headline:
+                entries.append(entry(name, "conv.cu", "conv.py:117", err[dtype], ms,
+                                     nbytes, flops, peak))
+        rows[(net, h, cin, cout)] = row
+        log(f"conv {net} [{BATCH},{h},{h},{cin}]->{cout}: " + "; ".join(
+            f"{tag} kernel {ms['kernel']:.5f} ms, cuDNN {ms['library']:.5f} ms "
+            f"({ms['kernel'] / ms['library']:.2f}x), bound {b_ms:.5f} ms ({by})"
+            + (f", plain {ms['plain']:.5f} ms" if "plain" in ms else "")
+            for tag, (ms, b_ms, by) in row.items()))
+    for net, (in_chans, chans) in CONV_LADDER.items():
+        convs = unet_convs(in_chans, chans, CONV_POOLS, SHAPE)
+        total = {}
+        for tag in ("f32", "bf16"):
+            for key, pick in (("kernel", lambda r: r[0]["kernel"]),
+                              ("cuDNN", lambda r: r[0]["library"]),
+                              ("bound", lambda r: r[1])):
+                total[f"{tag} {key}"] = sum(pick(rows[(net, *c)][tag]) for c in convs)
+        log(f"conv ladder {net}, one NormUnet forward ({len(convs)} 3x3 convs), ms: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in total.items())
+            + f"; kernel/cuDNN f32 {total['f32 kernel'] / total['f32 cuDNN']:.2f}x, "
+            f"bf16 {total['bf16 kernel'] / total['bf16 cuDNN']:.2f}x")
+    return entries
+
+
 def main():
     import torch
 
@@ -1091,21 +1326,27 @@ def main():
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-    build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu"])
+    build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu", "conv.cu"])
     rng = np.random.default_rng(0)
     entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng),
                *check_lncc(rng), *check_mi(rng)]
+    conv_err = check_conv(rng)
     main_paths = [check_serving(rng), check_train(rng)]
     autograd = check_autograd(rng)
     check_train_vs_cpu(rng)
     registration = check_registration(rng)[0]
+    ladder = check_conv_ladder(rng)
+    entries += time_conv_ladder(rng, conv_err)
     for e in entries:
         # serving and training are the main paths; d_img runs on its own,
-        # the loss kernels on the registration-loss library's entry points
+        # the loss kernels on the registration-loss library's entry points,
+        # the conv on its own entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":
             paths = [autograd]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
+        elif e["name"] in ("conv3x3", "conv3x3_bf16"):
+            paths = [ladder]
         else:
             paths = main_paths
         e["launches"] = sum(p.get(e["name"], 0) for p in paths)

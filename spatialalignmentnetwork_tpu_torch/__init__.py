@@ -11,7 +11,8 @@ Layout:
     ops/       fft/rss, k-space masks, grid sampling, window sums, the
                SSIM loss and the LNCC and MI registration losses
     models/    VarNet + NormUnet, spatial transformer, LibUNet
-    kernels/   ctypes bindings of the CUDA kernels, launch counts
+    kernels/   ctypes bindings of the CUDA kernels, launch counts; the 3x3
+               conv entry point `kernels.conv.conv3x3_s2d`
     csrc/      CUDA C++ sources (sm_90a)
     engine/    Config, checkpoint reading, weight carry-over from the JAX
                package's checkpoints, the serving CSModel

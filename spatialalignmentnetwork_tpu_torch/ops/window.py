@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def _f32_convs():
+def f32_convs():
     """cuDNN at true f32 (no TF32) inside, the caller's setting after."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -42,7 +42,7 @@ def window_sum2d(x: torch.Tensor, win: int, padding: str = "VALID") -> torch.Ten
     c = x.shape[1]
     ones_h = torch.ones((c, 1, win, 1), dtype=x.dtype, device=x.device)
     ones_w = torch.ones((c, 1, 1, win), dtype=x.dtype, device=x.device)
-    with _f32_convs():
+    with f32_convs():
         x = F.conv2d(x, ones_h, padding=(pad, 0), groups=c)
         return F.conv2d(x, ones_w, padding=(0, pad), groups=c)
 
@@ -52,7 +52,7 @@ def avg_pool2d_nchw(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     column that fills no window is dropped)."""
     c = x.shape[1]
     ones = torch.ones((c, 1, k, k), dtype=x.dtype, device=x.device)
-    with _f32_convs():
+    with f32_convs():
         s = F.conv2d(x, ones, stride=k, groups=c)
     return s / (k * k)
 
@@ -63,5 +63,5 @@ def conv2d_same_nchw(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
     kh, kw = kernel2d.shape
     c = x.shape[1]
     k = kernel2d.to(dtype=x.dtype, device=x.device)[None, None].expand(c, 1, kh, kw)
-    with _f32_convs():
+    with f32_convs():
         return F.conv2d(x, k, padding=(kh // 2, kw // 2), groups=c)

@@ -1,0 +1,227 @@
+"""The PyTorch port's 3x3 conv (`kernels/conv.py::conv3x3_s2d`) against the
+JAX package's Pallas kernel (`ops/pallas/conv.py::conv3x3_s2d`) in
+interpret mode, on the CPU, where the port takes its plain version.
+
+Inputs come from numpy seeds. Tolerances:
+  * f32 forward and gradients: rtol 1e-4, atol 1e-5 (of the gradient's max
+    |value| for the gradients): the same products, summed in another
+    order (the JAX kernel as a space-to-depth 2x2 GEMM);
+  * bf16 forward: one bf16 ulp of the larger of the two values: both round
+    one f32 sum once, and the order of that sum may flip the last bit.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spatialalignmentnetwork_tpu.ops.pallas.conv import conv3x3_s2d as jconv
+
+from spatialalignmentnetwork_tpu_torch import kernels
+from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+F32 = dict(rtol=1e-4, atol=1e-5)
+GRAD = dict(rtol=1e-4, atol_of_max=1e-5)
+
+# (N, H, W, Cin, Cout): the JAX package's own two cases
+# (tests/test_pallas.py:256), the first conv of a cascade (Cin 3), and a
+# two-channel output (the input gradient of the sensitivity net's first conv)
+SHAPES = {
+    "2x16x16_18to18": (2, 16, 16, 18, 18),
+    "1x40x24_4to8": (1, 40, 24, 4, 8),
+    "2x16x16_3to18": (2, 16, 16, 3, 18),
+    "1x8x8_18to2": (1, 8, 8, 18, 2),
+}
+
+
+def _inputs(shape, seed):
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, cin, cout)) * 0.2).astype(np.float32)
+    cot = rng.standard_normal((n, h, w, cout)).astype(np.float32)
+    return x, k, cot
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(v), 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_forward_f32_matches_pallas(case):
+    x, k, _ = _inputs(SHAPES[case], 30)
+    want = np.asarray(jconv(jnp.asarray(x), jnp.asarray(k), True))
+    got = kconv.conv3x3_s2d(torch.from_numpy(x), torch.from_numpy(k))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_forward_bf16_within_one_ulp_of_pallas(case):
+    x, k, _ = _inputs(SHAPES[case], 31)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    kb = jnp.asarray(k).astype(jnp.bfloat16)
+    want = jconv(xb, kb, True)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = kconv.conv3x3_s2d(torch.from_numpy(x).bfloat16(), torch.from_numpy(k).bfloat16())
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp = np.maximum(_bf16_ulp(got), _bf16_ulp(want))
+    assert np.all(np.abs(got - want) <= ulp), float(np.max(np.abs(got - want) / ulp))
+    # an f32 w3 is rounded to x's dtype first, as the JAX kernel does
+    got32w = kconv.conv3x3_s2d(torch.from_numpy(x).bfloat16(), torch.from_numpy(k))
+    assert torch.equal(got32w.float(), torch.from_numpy(got))
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_gradients_f32_match_pallas_vjp(case):
+    x, k, cot = _inputs(SHAPES[case], 32)
+    jcot = jnp.asarray(cot)
+    want = jax.grad(lambda a, b: jnp.sum(jconv(a, b, True) * jcot), (0, 1))(
+        jnp.asarray(x), jnp.asarray(k))
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    (kconv.conv3x3_s2d(tx, tk) * torch.from_numpy(cot)).sum().backward()
+    for got, w in zip((tx.grad, tk.grad), want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(got.numpy(), w, rtol=GRAD["rtol"],
+                                   atol=GRAD["atol_of_max"] * float(np.abs(w).max()))
+    # dx is the forward conv of the cotangent with the rotated weights
+    dx = kconv.conv3x3_plain(torch.from_numpy(cot), kconv.rotate(torch.from_numpy(k)))
+    assert torch.equal(tx.grad, dx)
+
+
+def test_bf16_backward_is_refused_as_in_the_reference():
+    """The JAX VJP raises TypeError in bf16 (ops/pallas/conv.py:164-171
+    convolves the bf16 x with the f32 cotangent); the port raises
+    NotImplementedError rather than add a feature the reference lacks."""
+    x, k, _ = _inputs(SHAPES["1x8x8_18to2"], 33)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    kb = jnp.asarray(k).astype(jnp.bfloat16)
+    with pytest.raises(TypeError, match="same dtypes"):
+        jax.grad(lambda a, b: jnp.sum(jconv(a, b, True).astype(jnp.float32)),
+                 (0, 1))(xb, kb)
+    tx = torch.from_numpy(x).bfloat16().requires_grad_()
+    tk = torch.from_numpy(k).bfloat16().requires_grad_()
+    out = kconv.conv3x3_s2d(tx, tk)
+    assert out.dtype == torch.bfloat16  # the forward works, as in JAX
+    with pytest.raises(NotImplementedError, match="conv.py:164-171"):
+        out.float().sum().backward()
+
+
+@pytest.mark.parametrize("hw", [(5, 4), (4, 5)])
+def test_odd_height_or_width_is_refused_by_both(hw):
+    x = np.zeros((1, *hw, 2), np.float32)
+    k = np.zeros((3, 3, 2, 2), np.float32)
+    with pytest.raises(AssertionError, match="even H, W"):
+        jconv(jnp.asarray(x), jnp.asarray(k), True)
+    with pytest.raises(ValueError, match="even H and W"):
+        kconv.conv3x3_s2d(torch.from_numpy(x), torch.from_numpy(k))
+
+
+def test_mocked_card_route_keeps_the_gradient(monkeypatch):
+    """The card's route through the autograd Function, with the CUDA
+    wrapper standing in as the plain version: the forward and the input
+    gradient each call the wrapper once, the output keeps the Function as
+    its grad_fn, and the weight gradient is the library's backward-filter,
+    run with cuDNN's TF32 off whatever the caller set."""
+    calls = []
+
+    def standin(x, w3):
+        calls.append((tuple(x.shape), tuple(w3.shape)))
+        return kconv.conv3x3_plain(x, w3)
+
+    tf32_seen = []
+    library = torch.nn.grad.conv2d_weight
+
+    def spy(*args, **kwargs):
+        tf32_seen.append(torch.backends.cudnn.allow_tf32)
+        return library(*args, **kwargs)
+
+    monkeypatch.setattr(kconv, "on_card", lambda t: True)
+    monkeypatch.setattr(kconv, "conv3x3_cuda", standin)
+    monkeypatch.setattr(torch.nn.grad, "conv2d_weight", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x, k, cot = _inputs((2, 8, 12, 3, 5), 34)
+    tx = torch.from_numpy(x).requires_grad_()
+    tk = torch.from_numpy(k).requires_grad_()
+    out = kconv.conv3x3_s2d(tx, tk)
+    assert type(out.grad_fn).__name__ == "Conv3x3S2DBackward"
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert calls == [((2, 8, 12, 3), (3, 3, 3, 5)), ((2, 8, 12, 5), (3, 3, 5, 3))]
+    assert tf32_seen == [False] and torch.backends.cudnn.allow_tf32 is True
+    want_dw = library(tx.detach().permute(0, 3, 1, 2), (5, 3, 3, 3),
+                      torch.from_numpy(cot).permute(0, 3, 1, 2), padding=1)
+    assert torch.equal(tk.grad, want_dw.permute(2, 3, 1, 0))
+
+
+def test_wrapper_raises_without_launching(monkeypatch):
+    launched = []
+    monkeypatch.setattr(kconv, "_launcher", lambda: launched.append(1))
+    kernels.reset_launches()
+    x = torch.rand((1, 4, 4, 3))
+    w = torch.rand((3, 3, 3, 2))
+    with pytest.raises(TypeError):  # f32 or bf16 only
+        kconv.conv3x3_cuda(x.double(), w.double())
+    with pytest.raises(TypeError):  # one dtype for both
+        kconv.conv3x3_cuda(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        kconv.conv3x3_cuda(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="CUDA"):  # CPU tensors never reach the kernel
+        kconv.conv3x3_cuda(x, w)
+    for bad_x, bad_w in ((torch.rand((1, 4, 4, 2)), w),       # Cin mismatch
+                         (torch.rand((1, 3, 4, 3)), w),       # odd H
+                         (x, torch.rand((2, 3, 3, 2))),       # not 3x3
+                         (x[0], w)):                          # not NHWC
+        with pytest.raises(ValueError):
+            kconv.conv3x3_cuda(bad_x, bad_w)
+        with pytest.raises(ValueError):
+            kconv.conv3x3_s2d(bad_x, bad_w)
+    with pytest.raises(TypeError):
+        kconv.conv3x3_s2d(x.double(), w.double())
+    assert launched == [] and not kernels.LAUNCHES
+
+
+def _chip_smoke():
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    return chip_smoke
+
+
+@pytest.mark.parametrize("in_chans,chans", [(3, 18), (2, 8)])
+def test_chip_smoke_ladder_is_the_unets_3x3_convs(in_chans, chans):
+    """The conv ladder chip_smoke.py drives is every 3x3 conv of the port's
+    U-Net (a cascade's: 3 inputs, 18 channels; the sensitivity net's: 2
+    inputs, 8 channels; 4 pools), in the order a forward runs them,
+    recorded here by hooks on a 32x32 forward."""
+    from spatialalignmentnetwork_tpu_torch.models.unet import Unet
+
+    seen = []
+    net = Unet(in_chans, 2, chans, 4)
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3):
+            m.register_forward_hook(
+                lambda m, i, o: seen.append((i[0].shape[-1], m.in_channels, m.out_channels)))
+    with torch.no_grad():
+        net(torch.zeros((1, in_chans, 32, 32)))
+    assert _chip_smoke().unet_convs(in_chans, chans, 4, 32) == seen
+    assert len(seen) == 18 and len(set(seen)) == 14
+
+
+def test_chip_smoke_conv_ladder_runs_on_cpu():
+    """chip_smoke.py's conv-ladder phase on the CPU at a small plane: its
+    shapes and checks are exercised here, its numbers only on a card."""
+    launches = _chip_smoke().check_conv_ladder(np.random.default_rng(0), device="cpu",
+                                               shape=32, batch=1)
+    assert launches == {}  # CPU tensors take the plain version
