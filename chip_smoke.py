@@ -11,7 +11,9 @@ failure:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the paths from csrc/, one nvcc per source,
-     all at once;
+     all at once; read the conv library's SASS (cuobjdump) and ptxas log:
+     HMMA in every bf16 kernel and none in the f32 ones, no spills in the
+     bf16 kernels;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and more (all padding modes, C = 2, a
      non-square plane, the smallest SSIM and LNCC planes, grids with
@@ -47,7 +49,9 @@ failure:
      (the ms pyramid pins f32 itself); launch counts reset just before
      and read just after (each loss launches its forward and backward
      kernel once a scale); card against the CPU; ms per call;
-  9. the conv ladder at full width: `conv3x3_s2d` forward and backward
+  9. the conv ladder at full width (phases 2, 3 and 9 for the conv alone:
+     `python3 -c "import chip_smoke; chip_smoke.conv_phases()"`):
+     `conv3x3_s2d` forward and backward
      (f32) and forward (bf16) on every distinct 3x3 conv of one cascade
      NormUnet and of the sensitivity NormUnet at batch 8 and 320 x 320,
      launch counts reset just before and read just after (exactly 2 f32
@@ -141,9 +145,16 @@ CONV_DW_TOL = 1e-3
 # the 3x3 convs of the port's NormUnets: (in channels, chans), 4 pools
 CONV_LADDER = {"cascade": (3, 18), "sensitivity": (2, 8)}
 CONV_POOLS = 4
-# small and ragged cases beside the ladder: (N, H, W, Cin, Cout)
+# small and ragged cases beside the ladder: (N, H, W, Cin, Cout). For the
+# bf16 kernel's edges: Cin off its 16-channel step and off the 16-, 8- and
+# 4-byte copies (2, 3, 5, 9, 18, 36, 65), many steps (576), Cout off its
+# 8-channel mma tiles and its paired stores (2, 3, 7, 18, 65), planes that
+# its 16x16, 8x16, 8x8 and 4x8 pixel tiles do not divide (20x20, 2x2, 6x4,
+# 36x64)
 CONV_EDGES = [(2, 40, 24, 4, 8), (1, 40, 24, 18, 2), (3, 2, 2, 5, 7),
-              (2, 20, 36, 9, 65), (2, 40, 24, 3, 2), (1, 10, 10, 576, 288)]
+              (2, 20, 36, 9, 65), (2, 40, 24, 3, 2), (1, 10, 10, 576, 288),
+              (2, 20, 20, 65, 18), (1, 6, 4, 36, 3), (2, 2, 2, 18, 2),
+              (1, 6, 4, 2, 18), (1, 36, 64, 3, 8), (1, 20, 20, 576, 36)]
 
 
 def log(*args):
@@ -170,6 +181,7 @@ def build_kernels(sources):
         regs = [ln.strip() for ln in compiler_log.splitlines() if "registers" in ln]
         log(f"built {src} -> {lib}: {regs}")
     log(f"kernel build: {secs:.2f} s for {len(sources)} source(s)")
+    return results
 
 
 # ----------------------------------------------------------------- inputs
@@ -1148,6 +1160,69 @@ def conv_ladder(size):
     return out
 
 
+def kernel_label(mangled):
+    """'conv3x3_bf16_kernel<16,16,8,1,3>' from a mangled template name."""
+    import re
+
+    base = re.search(r"\d+(conv3x3\w*?_kernel)I", mangled)
+    args = re.findall(r"Li(\d+)E", mangled)
+    kind = ["float"] if "_kernelIf" in mangled else []
+    return f"{base.group(1) if base else mangled}<{','.join(kind + args)}>"
+
+
+def check_conv_build(lib, compiler_log):
+    """The conv library as compiled: each kernel's registers and spills
+    (from nvcc's -Xptxas -v log) and its HMMA instructions (cuobjdump
+    -sass). Fails unless every bf16 kernel runs HMMA and spills nothing
+    and no f32 kernel has an HMMA. Returns {kernel: {registers, spill
+    bytes, hmma}}."""
+    import os
+    import re
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+
+    info, fn = {}, None
+    for ln in compiler_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            info.setdefault(fn, {})["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            info.setdefault(fn, {})["registers"] = int(m.group(1))
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    fn = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            info.setdefault(fn, {})["hmma"] = 0
+        elif fn and "HMMA" in ln:
+            info[fn]["hmma"] += 1
+    out = {kernel_label(k): v for k, v in info.items() if "conv3x3" in k}
+    bf16 = {k: v for k, v in out.items() if k.startswith("conv3x3_bf16_kernel")}
+    f32 = {k: v for k, v in out.items() if k.startswith("conv3x3_kernel")}
+    for k, v in sorted(out.items()):
+        log(f"conv.cu {k}: {v.get('registers', 'n/a')} registers, "
+            f"{v.get('spill', 'n/a')} spill bytes, {v.get('hmma')} HMMA")
+    if not compiler_log:
+        log("conv.cu: library reused from the build cache, no ptxas log to read")
+    bad = [k for k, v in bf16.items() if not v.get("hmma") or v.get("spill", 0)]
+    bad += [k for k, v in f32.items() if v.get("hmma")]
+    if not bf16 or not f32 or bad:
+        raise AssertionError(f"conv.cu: bf16 kernels {sorted(bf16)}, f32 kernels "
+                             f"{sorted(f32)}; failing (HMMA or spills) {bad}")
+    log(f"conv.cu SASS: {sum(v['hmma'] for v in bf16.values())} HMMA in "
+        f"{len(bf16)} bf16 kernels, {sum(v['hmma'] for v in f32.values())} in "
+        f"{len(f32)} f32 kernels")
+    return out
+
+
 def check_conv(rng):
     """The 3x3 conv kernel, forward and input gradient (the same kernel on
     the rotated weights), f32 and bf16, against its plain version in
@@ -1314,6 +1389,27 @@ def time_conv_ladder(rng, err):
     return entries
 
 
+def conv_phases():
+    """The conv's phases alone (its build and SASS checks, the kernel held
+    to float64, the ladder and its times), for work on the conv kernel; the
+    whole run is `main`. Returns the process's exit code."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}")
+    check_conv_build(*build_kernels(["conv.cu"])["conv.cu"])
+    rng = np.random.default_rng(0)
+    conv_err = check_conv(rng)
+    check_conv_ladder(rng)
+    time_conv_ladder(rng, conv_err)
+    return 0
+
+
 def main():
     import torch
 
@@ -1326,7 +1422,8 @@ def main():
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-    build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu", "conv.cu"])
+    built = build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu", "conv.cu"])
+    check_conv_build(*built["conv.cu"])
     rng = np.random.default_rng(0)
     entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng),
                *check_lncc(rng), *check_mi(rng)]

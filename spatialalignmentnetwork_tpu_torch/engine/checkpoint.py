@@ -40,7 +40,19 @@ def unflatten_tree(flat: dict) -> dict:
 
 def ckpt_load(folder: str) -> dict:
     """Load a native checkpoint directory -> {'net_X': flat dict,
-    'config': Config}. Entries that are not npz files are refused."""
+    'config': Config}. Entries that are not npz files are refused.
+
+    Recovers from an interrupted write as the JAX package does: a missing
+    target with a `.repack` sibling (a re-pack cut before its rename) gets
+    that directory renamed into place; a missing target with an
+    `.old-save` sibling (a `ckpt_save` cut between its two renames, when
+    `.old-save` is the whole previous checkpoint) loads `.old-save`."""
+    base = folder.rstrip("/")
+    if not os.path.exists(folder):
+        if os.path.isdir(base + ".repack"):
+            os.replace(base + ".repack", folder)
+        elif os.path.isdir(base + ".old-save"):
+            folder = base + ".old-save"
     if not os.path.isdir(folder):
         raise FileNotFoundError(f"not a checkpoint directory: {folder}")
     ckpt = {}
@@ -56,12 +68,17 @@ def ckpt_load(folder: str) -> dict:
 
 def ckpt_save(ckpt: dict, folder: str):
     """Write {'net_X': flat dict, ..., 'config': Config} as a checkpoint
-    directory (the layout of the JAX package's `ckpt_save`). The new
-    directory is written beside the target and then swapped in, so an
-    interrupted save leaves the old checkpoint whole."""
+    directory (the layout and the sequence of the JAX package's
+    `ckpt_save`). The new checkpoint is written whole to `.tmp-save`
+    beside the target; then the old one is renamed to `.old-save`, the new
+    one renamed into place, and only then is `.old-save` removed. A save
+    cut at any point leaves a whole checkpoint under the target name, or
+    (between the two renames) under `.old-save`, which `ckpt_load` reads
+    when the target is missing."""
     if os.path.exists(folder) and not os.path.isdir(folder):
         raise FileExistsError(f"{folder} exists and is not a directory")
-    tmp = folder.rstrip("/") + ".tmp-save"
+    base = folder.rstrip("/")
+    tmp, old = base + ".tmp-save", base + ".old-save"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -73,5 +90,9 @@ def ckpt_save(ckpt: dict, folder: str):
             with open(path, "wb") as f:
                 np.savez(f, **{k: np.asarray(v) for k, v in val.items()})
     if os.path.exists(folder):
-        shutil.rmtree(folder)
+        if os.path.exists(old):
+            shutil.rmtree(old)
+        os.replace(folder, old)
     os.replace(tmp, folder)
+    if os.path.exists(old):  # also one left by a save cut between the renames
+        shutil.rmtree(old)

@@ -16,12 +16,16 @@ the grid is detached), with loss_sim the SSIM loss of the reconstruction
 against the fully sampled rss image (the CUDA SSIM kernels on a card) and
 loss_smooth the displacement field's smoothness. Each net has its own Adam,
 the counterpart of the JAX package's `optax.adamw(lr, weight_decay=0)`.
-net_G / net_D (regimes Mixed, GAN-Only), the bf16 policy, LOUPE mask
-learning and per-cascade rematerialization wait for later slices.
+net_G / net_D (regimes Mixed, GAN-Only), gradient accumulation, the bf16
+policy, LOUPE mask learning and per-cascade rematerialization wait for
+later slices; `update` refuses a cfg that asks for one of them.
 
 Nets are built from the cfg keys of the JAX `CSModel.build`, and
 checkpoints go both ways in the JAX package's directory layout (`load`,
 `save`), with weights and Adam moments carried by `engine/from_jax.py`.
+What a loaded checkpoint holds for nets the port does not run yet (net_G
+and net_D, their Adam state, net_mask's own entries) is kept as loaded and
+written back by `save`.
 
 The model lives on `device`, "cuda" unless the caller asks for "cpu"; with
 no card and no explicit "cpu" it raises rather than run on the CPU.
@@ -116,6 +120,10 @@ class CSModel:
         torch.nn.init.zeros_(self.net_T.head.bias)
         self.net_T.to(self.device).eval()
         self.net_R.to(self.device).eval()
+        # checkpoint entries (and opt_state keys) of nets the port does not
+        # run, kept as loaded so that `save` writes them back
+        self._carried = {}
+        self._carried_opt = {}
         self.opt = {
             name: torch.optim.Adam(
                 getattr(self, name).parameters(), lr=cfg.lr,
@@ -177,7 +185,9 @@ class CSModel:
         """Set weights from JAX checkpoint entries {'net_T': flat, ...}; a
         net whose weights load restarts its Adam, unless `opt_state` (the
         JAX package's `save(with_opt=True)` entry) restores the moments.
-        net_G / net_D are not ported yet and are skipped."""
+        net_G / net_D (not ported yet), net_mask's entries other than
+        `pruned`, and the `opt_state` keys of nets other than net_T and
+        net_R are kept as they are for `save`."""
         for name in entries:
             if name not in NET_NAMES and name != "opt_state":
                 raise KeyError(f"unknown checkpoint entry {name!r}")
@@ -187,29 +197,49 @@ class CSModel:
                     getattr(self, name), entries[name], self._entries(name)
                 )
                 self.opt[name].state.clear()
+        for name in ("net_G", "net_D"):
+            if name in entries:
+                self._carried[name] = dict(entries[name])
         mask_entry = entries.get("net_mask", {})
+        self._carried["net_mask"] = {k: v for k, v in mask_entry.items()
+                                     if k != "pruned"}
         if "pruned" in mask_entry:
             self.pruned = torch.as_tensor(
                 np.asarray(mask_entry["pruned"]).astype(bool), device=self.device
             )
         if "opt_state" in entries:
             self._load_opt(entries["opt_state"])
+            self._carried_opt = {k: v for k, v in entries["opt_state"].items()
+                                 if k.split("/")[0] not in self.opt}
 
     def save(self, path, with_opt=False):
         """Write a checkpoint directory the JAX `CSModel` loads: net_T
-        (params and BatchNorm stats), net_R, net_mask (`pruned`) and the
-        config; with `with_opt`, the Adam moments of net_T and net_R as
-        the JAX package lays out its `opt_state` (optax's mu, nu, count
-        for torch's exp_avg, exp_avg_sq, step)."""
-        ckpt = {}
+        (params and BatchNorm stats), net_R, net_mask (`pruned`), the
+        config, and net_G / net_D as loaded; with `with_opt`, the Adam
+        moments of net_T and net_R as the JAX package lays out its
+        `opt_state` (optax's mu, nu, count for torch's exp_avg,
+        exp_avg_sq, step) beside the loaded `opt_state` of the other nets.
+
+        The JAX `load` wants the optimizer state of every net it has. The
+        port makes none for net_G and net_D (ROADMAP queue 1 item 3), so
+        `with_opt` needs a loaded checkpoint that carried `opt_state`, and
+        raises NotImplementedError otherwise."""
+        if with_opt and not self._carried_opt:
+            raise NotImplementedError(
+                "save(with_opt=True) needs the opt_state of net_G, net_D and "
+                "net_mask from a loaded checkpoint: the port does not build "
+                "net_G and net_D yet (ROADMAP queue 1 item 3)"
+            )
+        ckpt = dict(self._carried)
         for name in ("net_T", "net_R"):
             sd = getattr(self, name).state_dict()
             tensors = {k: v for k, v in sd.items()
                        if not k.endswith("num_batches_tracked")}
             ckpt[name] = from_jax.to_jax_entries(tensors, self._entries(name))
-        ckpt["net_mask"] = {"pruned": self.pruned.cpu().numpy()}
+        ckpt["net_mask"] = {**self._carried.get("net_mask", {}),
+                            "pruned": self.pruned.cpu().numpy()}
         if with_opt:
-            ckpt["opt_state"] = self._opt_entries()
+            ckpt["opt_state"] = {**self._carried_opt, **self._opt_entries()}
         ckpt["config"] = self.cfg
         ckpt_save(ckpt, path)
 
@@ -351,6 +381,17 @@ class CSModel:
             )
         if regime not in GRAD_NETS:
             raise ValueError(f"unknown regime {regime!r}")
+        if int(self.cfg.get("grad_accum", 1)) > 1:
+            raise NotImplementedError(
+                f"grad_accum={self.cfg.get('grad_accum')}: micro-batch gradient "
+                "accumulation is not ported yet (ROADMAP queue 1 item 3)"
+            )
+        # the JAX package's condition (its csmodel.py:592)
+        if self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False)):
+            raise NotImplementedError(
+                "learn_mask with a LOUPE mask: mask learning is not ported yet "
+                "(ROADMAP queue 1 item 6)"
+            )
         self._nets_mode(train=True)
         env = self._prepare(*self._batch, self.pruned)
         total, losses = self._regime_loss(env, regime)

@@ -4,8 +4,10 @@ autograd Function that joins them.
 
 Replaces the Pallas TPU kernel of the JAX package's `ops/pallas/conv.py`:
 `_conv3x3_s2d` (:98, pallas_call at :117, body `_conv2x2_valid_kernel`
-:67), with its custom VJP (:142-175). Bound on the H100 by operations at
-the VarNet's shapes: see the note at the top of the CUDA source.
+:67), with its custom VJP (:142-175). One C entry point, two kernels: f32
+on FFMA register tiles, bf16 on the tensor cores (mma.sync fed by
+cp.async); what bounds each at the VarNet's shapes is in the note at the
+top of the CUDA source.
 
 `conv3x3_s2d(x, w3)` takes x [N, H, W, Cin] (f32 or bf16, H and W even)
 and w3 [3, 3, Cin, Cout] (HWIO, cast to x's dtype as the JAX kernel does)
@@ -80,15 +82,16 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ CUDA wrapper
 def conv3x3_cuda(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: x [N, H, W, Cin] and w3 [3, 3, Cin, Cout], both
-    contiguous f32 or both bf16 CUDA tensors; returns [N, H, W, Cout]."""
+    """Launch the kernel of x's dtype (f32: FFMA, bf16: tensor cores): x
+    [N, H, W, Cin] and w3 [3, 3, Cin, Cout], both contiguous f32 or both
+    bf16 CUDA tensors; returns [N, H, W, Cout]."""
     check(x, w3)
     if x.dtype not in DTYPES or w3.dtype != x.dtype:
         raise TypeError(f"the conv3x3 kernel takes x and w3 both float32 or both "
                         f"bfloat16, got {x.dtype} and {w3.dtype}")
     if not (x.is_contiguous() and w3.is_contiguous()):
         raise ValueError("conv3x3 kernel inputs must be contiguous")
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {x.device}")
     n, h, wd, cin = x.shape
     cout = w3.shape[3]

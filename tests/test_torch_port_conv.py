@@ -190,6 +190,43 @@ def test_wrapper_raises_without_launching(monkeypatch):
     assert launched == [] and not kernels.LAUNCHES
 
 
+def test_mocked_launch_routes_by_dtype_and_counts(monkeypatch):
+    """A CUDA-tagged call reaches the C entry point with its pointers, the
+    shape and the dtype flag (1: the bf16 tensor-core kernel, 0: the f32
+    FFMA kernel) on the tensor's stream, and counts one launch under that
+    kernel's name; a failed launch raises and counts nothing."""
+    calls = []
+    rc = [0]
+
+    def launcher(*args):
+        calls.append(args)
+        return rc[0]
+
+    monkeypatch.setattr(kconv, "on_card", lambda t: True)
+    monkeypatch.setattr(kconv, "stream", lambda t: 1234)
+    monkeypatch.setattr(kconv, "_launcher", lambda: launcher)
+    kernels.reset_launches()
+    for dtype, flag, name in ((torch.bfloat16, 1, kconv.NAME_BF16),
+                              (torch.float32, 0, kconv.NAME)):
+        x = torch.rand((2, 6, 4, 18)).to(dtype)
+        w = torch.rand((3, 3, 18, 3)).to(dtype)
+        out = kconv.conv3x3_cuda(x, w)
+        assert out.shape == (2, 6, 4, 3) and out.dtype == dtype
+        assert calls[-1] == (x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             2, 6, 4, 18, 3, flag, 1234)
+        assert kernels.LAUNCHES[name] == 1
+    assert dict(kernels.LAUNCHES) == {kconv.NAME: 1, kconv.NAME_BF16: 1}
+    rc[0] = 700  # cudaErrorIllegalAddress
+    with pytest.raises(RuntimeError, match="conv3x3_bf16 kernel launch failed"):
+        kconv.conv3x3_cuda(x.bfloat16(), w.bfloat16())
+    assert dict(kernels.LAUNCHES) == {kconv.NAME: 1, kconv.NAME_BF16: 1}
+    # the entry point's forward in bf16 takes the same launch (no backward)
+    rc[0] = 0
+    kconv.conv3x3_s2d(x.bfloat16(), w)
+    assert calls[-1][8] == 1 and kernels.LAUNCHES[kconv.NAME_BF16] == 2
+    kernels.reset_launches()
+
+
 def _chip_smoke():
     sys.path.insert(0, REPO)
     try:
@@ -217,6 +254,46 @@ def test_chip_smoke_ladder_is_the_unets_3x3_convs(in_chans, chans):
         net(torch.zeros((1, in_chans, 32, 32)))
     assert _chip_smoke().unet_convs(in_chans, chans, 4, 32) == seen
     assert len(seen) == 18 and len(set(seen)) == 14
+
+
+def test_chip_smoke_conv_build_check_reads_hmma_and_spills(monkeypatch):
+    """chip_smoke.py's check of the built conv library, on a made-up ptxas
+    log and cuobjdump listing: it names each kernel from its mangled name,
+    counts HMMA per kernel and fails on a bf16 kernel without HMMA or with
+    spills, or an f32 kernel with HMMA."""
+    import subprocess
+
+    cs = _chip_smoke()
+    bf = "_ZN12_GLOBAL__N_119conv3x3_bf16_kernelILi16ELi16ELi8ELi1ELi3EEEvPK13__nv_bfloat16"
+    f32 = "_ZN12_GLOBAL__N_114conv3x3_kernelIfLi8ELi2ELi4EEEvPKT_S3_PS1_iiiiii"
+
+    def ptxas(spill):
+        return "\n".join(
+            f"ptxas info    : Function properties for {fn}\n"
+            f"    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads\n"
+            f"ptxas info    : Used {r} registers, used 1 barriers"
+            for fn, r, s in ((bf, 80, spill), (f32, 124, 0)))
+
+    def sass(hmma_bf, hmma_f32):
+        return "\n".join(
+            f"\t\tFunction : {fn}\n" + "        /*0010*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n" * n
+            + "        /*0020*/ FFMA R1, R2, R3, R1 ;"
+            for fn, n in ((bf, hmma_bf), (f32, hmma_f32)))
+
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "/cuda/bin/nvcc")
+    for spill, hb, hf, ok in ((0, 54, 0, True), (8, 54, 0, False),
+                              (0, 0, 0, False), (0, 54, 2, False)):
+        monkeypatch.setattr(subprocess, "run", lambda cmd, _s=sass(hb, hf), **kw:
+                            subprocess.CompletedProcess(cmd, 0, _s, ""))
+        if ok:
+            got = cs.check_conv_build("libconv.so", ptxas(spill))
+            assert got == {"conv3x3_bf16_kernel<16,16,8,1,3>":
+                           {"spill": 0, "registers": 80, "hmma": 54},
+                           "conv3x3_kernel<float,8,2,4>":
+                           {"spill": 0, "registers": 124, "hmma": 0}}
+        else:
+            with pytest.raises(AssertionError, match="HMMA or spills"):
+                cs.check_conv_build("libconv.so", ptxas(spill))
 
 
 def test_chip_smoke_conv_ladder_runs_on_cpu():

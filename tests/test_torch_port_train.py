@@ -19,7 +19,12 @@ so both start from the same weights, BatchNorm statistics and mask. Then:
     statistics (rtol 1e-4; a running mean takes 0.1 of its conv bias each
     step, so it also carries that bias's noise: atol lr).
   * checkpoints both ways: the port's save loads in the JAX CSModel, and a
-    JAX `save(with_opt=True)` resumes in the port with Adam's moments.
+    JAX `save(with_opt=True)` resumes in the port with Adam's moments; the
+    port's `save(with_opt=True)` of it loads in the JAX CSModel with every
+    optimizer key, and net_G / net_D survive load-then-save bit for bit.
+  * what the port does not run yet (gradient accumulation, LOUPE mask
+    learning, the optimizer state of a model built without a checkpoint)
+    is refused, not silently dropped.
   * `chip_smoke.py`'s train and autograd phases run on the CPU.
 
 Inputs come from numpy seeds.
@@ -249,24 +254,35 @@ def test_port_checkpoint_loads_in_jax(start, tmp_path):
     )
 
 
-def test_jax_checkpoint_with_opt_resumes_in_port(start, tmp_path):
-    """A JAX `save(with_opt=True)` after one step: the port restores
-    Adam's moments and step exactly, and its next step matches the JAX
-    next step (the Adam bar with n = 1)."""
+@pytest.fixture(scope="module")
+def jax_opt(start, tmp_path_factory):
+    """A JAX `save(with_opt=True)` after one Rec step, and the JAX state
+    it holds."""
     jm, state0, _ = start
     jm.cfg.reg = "Rec"
     jm.state = _copy(state0)
     jm.set_input(*_batch(0))
     jm.update()
-    path = str(tmp_path / "jax_opt")
+    path = str(tmp_path_factory.mktemp("jax_opt") / "ckpt")
     jm.save(path, with_opt=True)
+    return path, _copy(jm.state)
+
+
+def test_jax_checkpoint_with_opt_resumes_in_port(start, jax_opt, tmp_path):
+    """A JAX `save(with_opt=True)` after one step: the port restores
+    Adam's moments and step exactly (and saves them back with every other
+    net's optimizer keys as loaded), and its next step matches the JAX
+    next step (the Adam bar with n = 1)."""
+    jm = start[0]
+    path, state1 = jax_opt
+    jm.cfg.reg = "Rec"
+    jm.state = _copy(state1)
     tm = CSModel(ckpt=path, cfg=_cfg("Rec"), device="cpu")
     back = str(tmp_path / "port_opt")
     tm.save(back, with_opt=True)
     want, got = jckpt_load(path)["opt_state"], jckpt_load(back)["opt_state"]
-    ours = {k for k in want if k.split("/")[0] in ("net_T", "net_R")}
-    assert set(got) == ours
-    for k in ours:
+    assert set(got) == set(want)
+    for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
     full, aux = _batch(1)
@@ -280,6 +296,86 @@ def test_jax_checkpoint_with_opt_resumes_in_port(start, tmp_path):
     for name in ("net_T", "net_R"):
         _assert_adam_bar(_port_params(tm, name), _jax_entry(jm.state, "params", name),
                          1, _bn_biases(tm), f"resumed {name}")
+
+
+def test_port_save_with_opt_after_a_step_loads_in_jax(start, jax_opt, tmp_path):
+    """JAX `save(with_opt=True)` -> port load -> one port step -> port
+    `save(with_opt=True)`: the JAX CSModel loads it (its `load` asserts
+    that no optimizer key is missing). Every `opt_state` key is there: net_G,
+    net_D and net_mask's as carried, net_T and net_R's the port's own
+    moments after its step; the JAX model restores both exactly."""
+    from flax import serialization
+
+    path, _ = jax_opt
+    tm = CSModel(ckpt=path, cfg=_cfg("Rec"), device="cpu")
+    tm.set_input(*_batch(1))
+    tm.update()
+    out = str(tmp_path / "port_opt_step")
+    tm.save(out, with_opt=True)
+    want = jckpt_load(path)["opt_state"]
+    got = jckpt_load(out)["opt_state"]
+    ours = tm._opt_entries()
+    assert set(got) == set(want)
+    assert {k.split("/")[0] for k in set(want) - set(ours)} == {"net_G", "net_D", "net_mask"}
+    for k in want:
+        np.testing.assert_array_equal(got[k], ours[k] if k in ours else want[k], err_msg=k)
+    assert int(ours["net_T/0/count"]) == 2  # the JAX step, then the port's
+    jm = JaxCSModel(ckpt=out)
+    restored = flatten_tree(serialization.to_state_dict(jm.state["opt"]))
+    assert set(restored) == set(got)
+    for k, v in got.items():
+        np.testing.assert_array_equal(np.asarray(restored[k]), v, err_msg=k)
+
+
+def test_load_then_save_keeps_net_g_and_net_d(start, tmp_path):
+    """A JAX checkpoint's net_G and net_D (nets the port does not run yet)
+    come back from a port load-then-save bit for bit, params and stats."""
+    _, _, path = start
+    tm = CSModel(ckpt=path, cfg=_cfg("Rec"), device="cpu")
+    out = str(tmp_path / "port_resaved")
+    tm.save(out)
+    want, got = jckpt_load(path), jckpt_load(out)
+    for name in ("net_G", "net_D"):
+        assert set(got[name]) == set(want[name]) and want[name], name
+        for k, v in want[name].items():
+            assert got[name][k].dtype == v.dtype, f"{name} {k}"
+            np.testing.assert_array_equal(got[name][k], v, err_msg=f"{name} {k}")
+
+
+def test_save_with_opt_without_a_checkpoint_is_refused(tmp_path):
+    """A model built from a cfg has no optimizer state for net_G and net_D
+    to write, and the JAX `load` rejects an `opt_state` without them."""
+    tm = CSModel(cfg=_cfg("Rec"), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        tm.save(str(tmp_path / "fresh"), with_opt=True)
+    assert not os.path.exists(tmp_path / "fresh")
+    tm.save(str(tmp_path / "fresh"))  # without the optimizer state it saves
+
+
+def test_grad_accum_is_refused():
+    """The JAX package runs micro-batches for grad_accum > 1; the port does
+    not, so it refuses rather than take one full-batch step."""
+    tm = CSModel(cfg=Config(**{**_cfg("Rec").to_dict(), "grad_accum": 2}), device="cpu")
+    tm.set_input(*_batch(0))
+    before = [p.detach().clone() for p in tm.net_R.parameters()]
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        tm.update()
+    assert all(torch.equal(a, p) for a, p in zip(before, tm.net_R.parameters()))
+
+
+def test_learn_mask_with_a_loupe_mask_is_refused(start):
+    """cfg.mask == "loupe" and cfg.learn_mask (the JAX condition): the JAX
+    step trains the mask's logits; the port refuses rather than train a
+    fixed mask. A LOUPE checkpoint without learn_mask still trains."""
+    _, _, path = start
+    loupe = {**_cfg("Rec").to_dict(), "mask": "loupe"}
+    tm = CSModel(ckpt=path, cfg=Config(**loupe, learn_mask=True), device="cpu")
+    tm.set_input(*_batch(0))
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tm.update()
+    tm = CSModel(ckpt=path, cfg=Config(**loupe, learn_mask=False), device="cpu")
+    tm.set_input(*_batch(0))
+    tm.update()
 
 
 def test_chip_smoke_train_and_autograd_phases_run_on_cpu():
