@@ -12,17 +12,17 @@ failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the paths from csrc/, one nvcc per source,
      all at once; read the conv library's SASS (cuobjdump) and ptxas log:
-     HMMA in every bf16 kernel and none in the f32 ones, no spills in the
-     bf16 kernels;
+     tensor-core HMMA in every kernel instance (TF32 ones in the f32
+     kernels, bf16 ones in the bf16 kernels), no spills in any;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and more (all padding modes, C = 2, a
-     non-square plane, the smallest SSIM and LNCC planes, grids with
-     out-of-range coordinates, MI values outside the bin range and 32
-     bins, the MI backward near the top bin held to float64; the 3x3 conv
-     forward and input gradient, f32 and bf16, held to float64 on every
-     conv of the ladder of phase 9 and on ragged planes and channels), then
-     its
-     time beside its plain version, the one-call PyTorch equivalent where
+     non-square plane, augmentation's 352 plane, an output plane of odd
+     width and odd size, a grid only 8-byte aligned, the smallest SSIM and
+     LNCC planes, grids with out-of-range coordinates, MI values outside
+     the bin range and 32 bins, the MI backward near the top bin held to
+     float64; the 3x3 conv forward and input gradient, f32 and bf16, held
+     to float64 on every conv of the ladder of phase 9 and on ragged
+     planes, channels and batches), then its time beside its plain version, the one-call PyTorch equivalent where
      there is one (a yardstick the port never calls) and its bound on an
      H100 SXM;
   4. full-width serving: `CSModel` at the default widths (320 x 320, 1
@@ -58,7 +58,9 @@ failure:
      launches a shape: the forward and the input gradient), outputs and
      gradients held to float64; then each shape's kernel time beside
      cuDNN's (`F.conv2d` on a channels-last view, TF32 off; a yardstick
-     the port never calls) and its bound, and one cascade's totals.
+     the port never calls), cuDNN's with TF32 on (f32; information for the
+     nets' TF32 decision, not the yardstick) and its bound, and one
+     cascade's totals.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -66,6 +68,8 @@ no result line, on any failure or when no card is available.
 """
 
 import concurrent.futures
+import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -76,7 +80,10 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet), for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores
+TF32_FLOPS = 495e12  # tensor cores, dense
 BF16_FLOPS = 989e12  # tensor cores, dense
+# the f32 conv runs 3xTF32: three TF32 products an f32 product
+F32X3_FLOPS = TF32_FLOPS / 3
 
 SHAPE = 320
 BATCH = 8
@@ -150,11 +157,13 @@ CONV_POOLS = 4
 # 4-byte copies (2, 3, 5, 9, 18, 36, 65), many steps (576), Cout off its
 # 8-channel mma tiles and its paired stores (2, 3, 7, 18, 65), planes that
 # its 16x16, 8x16, 8x8 and 4x8 pixel tiles do not divide (20x20, 2x2, 6x4,
-# 36x64)
+# 36x64); for the f32 kernel's two-image tiles at 40 and 20, an odd batch
+# (3) whose last tile has one image
 CONV_EDGES = [(2, 40, 24, 4, 8), (1, 40, 24, 18, 2), (3, 2, 2, 5, 7),
               (2, 20, 36, 9, 65), (2, 40, 24, 3, 2), (1, 10, 10, 576, 288),
               (2, 20, 20, 65, 18), (1, 6, 4, 36, 3), (2, 2, 2, 18, 2),
-              (1, 6, 4, 2, 18), (1, 36, 64, 3, 8), (1, 20, 20, 576, 36)]
+              (1, 6, 4, 2, 18), (1, 36, 64, 3, 8), (1, 20, 20, 576, 36),
+              (3, 40, 40, 18, 576), (3, 20, 20, 40, 576)]
 
 
 def log(*args):
@@ -182,6 +191,75 @@ def build_kernels(sources):
         log(f"built {src} -> {lib}: {regs}")
     log(f"kernel build: {secs:.2f} s for {len(sources)} source(s)")
     return results
+
+
+class _MemLocation(ctypes.Structure):
+    _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+
+class _MemAllocationProp(ctypes.Structure):  # CUmemAllocationProp
+    _fields_ = [("type", ctypes.c_int), ("requestedHandleTypes", ctypes.c_int),
+                ("location", _MemLocation), ("win32HandleMetaData", ctypes.c_void_p),
+                ("compressionType", ctypes.c_ubyte), ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                ("usage", ctypes.c_ushort), ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _MemAccessDesc(ctypes.Structure):  # CUmemAccessDesc
+    _fields_ = [("location", _MemLocation), ("flags", ctypes.c_int)]
+
+
+@contextlib.contextmanager
+def guarded(t):
+    """A copy of the CUDA tensor `t` whose last byte is the last mapped byte
+    of its range: the granule of addresses after it is reserved and never
+    mapped (CUDA's virtual memory API), so a kernel that reads past the
+    copy's end fails with an illegal-address error, where past a caching
+    allocator block it would read a neighbour's bytes unnoticed."""
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    u64 = ctypes.c_uint64
+
+    def ok(res, what):
+        if res != 0:
+            raise RuntimeError(f"{what} failed: CUresult {res}")
+
+    prop = _MemAllocationProp(type=1, location=_MemLocation(1, t.device.index or 0))
+    gran = ctypes.c_size_t()
+    ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0),
+       "cuMemGetAllocationGranularity")
+    nbytes = t.numel() * t.element_size()
+    size = (nbytes + gran.value - 1) // gran.value * gran.value
+    base, handle = u64(), u64()
+    ok(cu.cuMemAddressReserve(ctypes.byref(base), ctypes.c_size_t(2 * size),
+                              ctypes.c_size_t(0), u64(0), u64(0)), "cuMemAddressReserve")
+    try:
+        ok(cu.cuMemCreate(ctypes.byref(handle), ctypes.c_size_t(size), ctypes.byref(prop),
+                          u64(0)), "cuMemCreate")
+        try:
+            ok(cu.cuMemMap(base, ctypes.c_size_t(size), ctypes.c_size_t(0), handle, u64(0)),
+               "cuMemMap")
+            try:
+                access = _MemAccessDesc(location=prop.location, flags=3)  # read/write
+                ok(cu.cuMemSetAccess(base, ctypes.c_size_t(size), ctypes.byref(access),
+                                     ctypes.c_size_t(1)), "cuMemSetAccess")
+
+                class Mapped:
+                    __cuda_array_interface__ = {"shape": (size,), "typestr": "|u1",
+                                                "data": (base.value, False), "strides": None,
+                                                "version": 2}
+
+                raw = torch.as_tensor(Mapped(), device=t.device)
+                copy = raw[size - nbytes:].view(t.dtype).view(t.shape)
+                copy.copy_(t)
+                yield copy
+            finally:
+                torch.cuda.synchronize()  # no kernel may touch it once unmapped
+                cu.cuMemUnmap(base, ctypes.c_size_t(size))
+        finally:
+            cu.cuMemRelease(handle)
+    finally:
+        cu.cuMemAddressFree(base, ctypes.c_size_t(2 * size))
 
 
 # ----------------------------------------------------------------- inputs
@@ -266,11 +344,23 @@ def check_grid_sample(rng):
 
     dev = torch.device("cuda")
     max_err = 0.0
-    for c in (1, 2):
-        img = torch.from_numpy(
-            rng.standard_normal((BATCH, c, SHAPE, SHAPE)).astype(np.float32)
-        ).to(dev)
-        grid = sample_grid(rng, BATCH, SHAPE, SHAPE).to(dev)
+    # (N, C, H, W, Ho, Wo, grid offset in floats): the serving plane with C
+    # = 1 and 2 (four pixels a thread, 16-byte grid loads); augmentation's
+    # 352 plane; an output plane other than the input's with an odd Wo and
+    # an odd Ho Wo (a pixel at a time, a tail of 2 pixels past the end); a
+    # grid only 8-byte aligned. Where N Ho Wo % 4 != 0 the image and the
+    # grid are also read from copies that end at unmapped memory, and the
+    # outputs must be the same bits.
+    cases = [(BATCH, 1, SHAPE, SHAPE, SHAPE, SHAPE, 0),
+             (BATCH, 2, SHAPE, SHAPE, SHAPE, SHAPE, 0),
+             (4, 1, 352, 352, 352, 352, 0), (2, 2, 40, 52, 37, 45, 0),
+             (2, 1, 40, 52, 36, 44, 2)]
+    for n, c, h, w, ho, wo, shift in cases:
+        img = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(dev)
+        grid = sample_grid(rng, n, ho, wo).to(dev)
+        buf = torch.empty(grid.numel() + shift, device=dev)
+        buf[shift:] = grid.flatten()
+        grid = buf[shift:].view(grid.shape)
         outside = float((grid.abs() > 1).float().mean())
         for mode in kgs.PADDING_MODES:
             got = kgs.grid_sample_cuda(img, grid, mode)
@@ -278,7 +368,8 @@ def check_grid_sample(rng):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             if not err <= F32_ATOL:
-                raise AssertionError(f"grid_sample f32 C={c} {mode}: {err}")
+                raise AssertionError(f"grid_sample f32 {tuple(img.shape)} -> {ho}x{wo} "
+                                     f"{mode}: {err}")
             max_err = max(max_err, err)
             imgb = img.to(torch.bfloat16)
             gotb = kgs.grid_sample_cuda(imgb, grid, mode).float()
@@ -286,9 +377,18 @@ def check_grid_sample(rng):
             torch.cuda.synchronize()
             errb = float((gotb - wantb).abs().max())
             torch.testing.assert_close(gotb, wantb, rtol=BF16_RTOL, atol=0.0)
-            log(f"grid_sample C={c} {mode:10s}: f32 max|kernel-plain| {err:.3g} "
-                f"(tol {F32_ATOL}), bf16 {errb:.3g} (tol rtol {BF16_RTOL}); "
-                f"{outside:.4f} of grid coords beyond +-1")
+            if n * ho * wo % 4:
+                for im, want_bits in ((img, got), (imgb, gotb)):
+                    with guarded(im) as gim, guarded(grid) as ggrid:
+                        edge = kgs.grid_sample_cuda(gim, ggrid, mode).float()
+                    if not torch.equal(edge, want_bits.float()):
+                        raise AssertionError(f"grid_sample {tuple(im.shape)} {im.dtype} "
+                                             f"{mode}: inputs at unmapped memory change it")
+                log(f"grid_sample {tuple(img.shape)} -> {ho}x{wo} {mode}: image and grid "
+                    f"ending at unmapped memory, f32 and bf16: the same bits")
+            log(f"grid_sample {tuple(img.shape)} -> {ho}x{wo} (grid +{shift}) {mode:10s}: "
+                f"f32 max|kernel-plain| {err:.3g} (tol {F32_ATOL}), bf16 {errb:.3g} "
+                f"(tol rtol {BF16_RTOL}); {outside:.4f} of grid coords beyond +-1")
 
     # time at the serving shape: warp of |aux| [8, 1, 320, 320], zeros
     sets = []
@@ -1166,16 +1266,21 @@ def kernel_label(mangled):
 
     base = re.search(r"\d+(conv3x3\w*?_kernel)I", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
-    kind = ["float"] if "_kernelIf" in mangled else []
-    return f"{base.group(1) if base else mangled}<{','.join(kind + args)}>"
+    return f"{base.group(1) if base else mangled}<{','.join(args)}>"
+
+
+# each conv kernel (by dtype) and its tensor-core instruction in SASS: the
+# f32 kernel's 3xTF32 runs m16n8k8 TF32, the bf16 kernel m16n8k16 bf16
+CONV_KERNELS = {"f32": ("conv3x3_tf32_kernel", "HMMA.1688.F32.TF32"),
+                "bf16": ("conv3x3_bf16_kernel", "HMMA.16816.F32.BF16")}
 
 
 def check_conv_build(lib, compiler_log):
     """The conv library as compiled: each kernel's registers and spills
-    (from nvcc's -Xptxas -v log) and its HMMA instructions (cuobjdump
-    -sass). Fails unless every bf16 kernel runs HMMA and spills nothing
-    and no f32 kernel has an HMMA. Returns {kernel: {registers, spill
-    bytes, hmma}}."""
+    (from nvcc's -Xptxas -v log) and its HMMA instructions of its type
+    (cuobjdump -sass; CONV_KERNELS). Fails unless every f32 and every bf16
+    kernel instance runs its HMMA and spills nothing. Returns {kernel:
+    {registers, spill bytes, hmma}}."""
     import os
     import re
 
@@ -1196,30 +1301,30 @@ def check_conv_build(lib, compiler_log):
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    fn = None
+    fn, hmma = None, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
             info.setdefault(fn, {})["hmma"] = 0
-        elif fn and "HMMA" in ln:
+            hmma = next((op for prefix, op in CONV_KERNELS.values() if prefix in fn), "HMMA")
+        elif fn and hmma in ln:
             info[fn]["hmma"] += 1
     out = {kernel_label(k): v for k, v in info.items() if "conv3x3" in k}
-    bf16 = {k: v for k, v in out.items() if k.startswith("conv3x3_bf16_kernel")}
-    f32 = {k: v for k, v in out.items() if k.startswith("conv3x3_kernel")}
+    kinds = {tag: {k: v for k, v in out.items() if k.startswith(prefix)}
+             for tag, (prefix, _) in CONV_KERNELS.items()}
     for k, v in sorted(out.items()):
         log(f"conv.cu {k}: {v.get('registers', 'n/a')} registers, "
             f"{v.get('spill', 'n/a')} spill bytes, {v.get('hmma')} HMMA")
     if not compiler_log:
         log("conv.cu: library reused from the build cache, no ptxas log to read")
-    bad = [k for k, v in bf16.items() if not v.get("hmma") or v.get("spill", 0)]
-    bad += [k for k, v in f32.items() if v.get("hmma")]
-    if not bf16 or not f32 or bad:
-        raise AssertionError(f"conv.cu: bf16 kernels {sorted(bf16)}, f32 kernels "
-                             f"{sorted(f32)}; failing (HMMA or spills) {bad}")
-    log(f"conv.cu SASS: {sum(v['hmma'] for v in bf16.values())} HMMA in "
-        f"{len(bf16)} bf16 kernels, {sum(v['hmma'] for v in f32.values())} in "
-        f"{len(f32)} f32 kernels")
+    bad = [k for k, v in out.items() if not v.get("hmma") or v.get("spill", 0)]
+    if not all(kinds.values()) or bad or len(out) != sum(map(len, kinds.values())):
+        raise AssertionError(f"conv.cu: kernels {sorted(out)}; failing (HMMA or "
+                             f"spills) {bad}")
+    log("conv.cu SASS: " + ", ".join(
+        f"{sum(v['hmma'] for v in ks.values())} {CONV_KERNELS[tag][1]} in {len(ks)} "
+        f"{tag} kernels" for tag, ks in kinds.items()))
     return out
 
 
@@ -1330,9 +1435,11 @@ def check_conv_ladder(rng, device="cuda", shape=SHAPE, batch=BATCH):
 def time_conv_ladder(rng, err):
     """Each ladder conv's forward at batch 8: the kernel beside cuDNN
     (`F.conv2d` on a channels-last view of the same NHWC tensor; f32 with
-    TF32 off, and bf16) and its bound; then one NormUnet forward's totals
-    for each net. Returns the `kernels` entries of the f32 and bf16 kernel
-    (without the launch counts), timed at [8, 320, 320, 18] -> 18."""
+    TF32 off, and bf16), beside cuDNN f32 with TF32 on (information, not
+    the yardstick: it rounds the inputs to 10-bit mantissas) and its bound
+    (f32: 3xTF32, the FFMA bound beside it); then one NormUnet forward's
+    totals for each net. Returns the `kernels` entries of the f32 and bf16
+    kernel (without the launch counts), timed at [8, 320, 320, 18] -> 18."""
     import torch
     import torch.nn.functional as F
 
@@ -1341,7 +1448,7 @@ def time_conv_ladder(rng, err):
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
-    kinds = ((torch.float32, "f32", F32_FLOPS, kconv.NAME),
+    kinds = ((torch.float32, "f32", F32X3_FLOPS, kconv.NAME),
              (torch.bfloat16, "bf16", BF16_FLOPS, kconv.NAME_BF16))
     rows, entries = {}, []
     for net, h, cin, cout in conv_ladder(SHAPE):
@@ -1356,32 +1463,50 @@ def time_conv_ladder(rng, err):
             w3 = (torch.randn((3, 3, cin, cout), device=dev, generator=gen)
                   / (9 * cin) ** 0.5).to(dtype)
             w_cl = w3.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            fns = {"kernel": lambda x: kconv.conv3x3_cuda(x, w3),
-                   "library": lambda x: F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1)}
+
+            def cudnn(x):
+                return F.conv2d(x.permute(0, 3, 1, 2), w_cl, padding=1)
+
+            def cudnn_tf32(x):  # inside f32_convs: TF32 off again after
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    return cudnn(x)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+
+            fns = {"kernel": lambda x: kconv.conv3x3_cuda(x, w3), "library": cudnn}
+            if dtype == torch.float32:
+                fns["tf32"] = cudnn_tf32
             if headline:
                 fns["plain"] = lambda x: kconv.conv3x3_plain(x, w3)
             with f32_convs():
                 ms, _ = time_all(fns, [(x,) for x in xs])
             del xs
             nbytes = size * (px * cin + 9 * cin * cout + px * cout)
-            row[tag] = (ms, *bound(nbytes, flops, peak))
+            row[tag] = (ms, *bound(nbytes, flops, peak), bound(nbytes, flops)[0])
             if headline:
                 entries.append(entry(name, "conv.cu", "conv.py:117", err[dtype], ms,
                                      nbytes, flops, peak))
         rows[(net, h, cin, cout)] = row
         log(f"conv {net} [{BATCH},{h},{h},{cin}]->{cout}: " + "; ".join(
             f"{tag} kernel {ms['kernel']:.5f} ms, cuDNN {ms['library']:.5f} ms "
-            f"({ms['kernel'] / ms['library']:.2f}x), bound {b_ms:.5f} ms ({by})"
+            f"({ms['kernel'] / ms['library']:.2f}x)"
+            + (f", cuDNN TF32 {ms['tf32']:.5f} ms" if "tf32" in ms else "")
+            + f", bound {b_ms:.5f} ms ({by})"
+            + (f", FFMA bound {ffma_ms:.5f} ms" if tag == "f32" else "")
             + (f", plain {ms['plain']:.5f} ms" if "plain" in ms else "")
-            for tag, (ms, b_ms, by) in row.items()))
+            for tag, (ms, b_ms, by, ffma_ms) in row.items()))
     for net, (in_chans, chans) in CONV_LADDER.items():
         convs = unet_convs(in_chans, chans, CONV_POOLS, SHAPE)
         total = {}
         for tag in ("f32", "bf16"):
             for key, pick in (("kernel", lambda r: r[0]["kernel"]),
                               ("cuDNN", lambda r: r[0]["library"]),
-                              ("bound", lambda r: r[1])):
-                total[f"{tag} {key}"] = sum(pick(rows[(net, *c)][tag]) for c in convs)
+                              ("cuDNN TF32", lambda r: r[0].get("tf32")),
+                              ("bound", lambda r: r[1]),
+                              ("FFMA bound", lambda r: r[3])):
+                if tag == "f32" or key in ("kernel", "cuDNN", "bound"):
+                    total[f"{tag} {key}"] = sum(pick(rows[(net, *c)][tag]) for c in convs)
         log(f"conv ladder {net}, one NormUnet forward ({len(convs)} 3x3 convs), ms: "
             + ", ".join(f"{k} {v:.5f}" for k, v in total.items())
             + f"; kernel/cuDNN f32 {total['f32 kernel'] / total['f32 cuDNN']:.2f}x, "

@@ -26,11 +26,18 @@
 // integer coordinate the floor-form derivative is one-sided, and an ulp of
 // difference would take the other neighbour difference.
 //
-// Forward design: one thread per output pixel (n, ho, wo), looping over C,
-// so the grid is read once per pixel (one 8-byte load) and the four tap
-// indices and weights are shared by every channel. Gather-only, so the
-// result is deterministic.
-//
+// Forward design: four output pixels a thread, consecutive in the flat
+// (n, ho, wo) order, so a thread reads 32 bytes of grid (two 16-byte loads
+// where Ho Wo is a multiple of 4 and the pointers are aligned; else one
+// 8-byte load a pixel, which takes any Wo and a tail) and puts 16 tap
+// loads of each channel in flight together before it sums any; the four
+// outputs go out in one 16-byte (f32) or 8-byte (bf16) store. Tap offsets
+// are 32-bit: the wrapper refuses tensors of 2^31 elements. Each pixel
+// keeps the one-pixel sequence of rounded operations (unnormalize, pad,
+// taps, weights, then the taps summed in order), so the results are those
+// of a thread a pixel, bit for bit. Gather-only, so the result is
+// deterministic.
+
 // d_grid (`grid_sample_bwd_dgrid`): one thread per output pixel, looping
 // over C, so the channel sum needs no atomics and is deterministic. Per
 // channel d_ix = g [(1-wy)(I(y0,x0+1) - I(y0,x0)) + wy (I(y0+1,x0+1) -
@@ -51,12 +58,14 @@
 // Bound on the H100 SXM: memory, for all three. At the serving shape (batch
 // 8, 1 x 320 x 320, f32) the forward reads 3.3 MB of image and 6.6 MB of
 // grid and writes 3.3 MB: about 13.1 MB, or about 3.9 us at 3.35 TB/s,
-// against about 0.02 GFLOP of arithmetic. At the train shape (batch 4) the
-// d_grid kernel moves 9.8 MB (image, grid and upstream gradient read,
-// d_grid written: 2.9 us) and d_img 8.2 MB (grid and upstream gradient
-// read, d_img zeroed and written: 2.4 us). Faster versions (vectorised grid
-// loads, several pixels a thread, the source band staged in shared memory)
-// are later work; these are the simple and right first versions.
+// against about 0.02 GFLOP of arithmetic; a thread a pixel reached 1 TB/s
+// there, held back by the latency of one 8-byte grid load and then four
+// dependent gathers a thread, which the four-pixel threads overlap. At the
+// train shape (batch 4) the d_grid kernel moves 9.8 MB (image, grid and
+// upstream gradient read, d_grid written: 2.9 us) and d_img 8.2 MB (grid
+// and upstream gradient read, d_img zeroed and written: 2.4 us). Faster
+// backward kernels (several pixels a thread, the source band staged in
+// shared memory) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,12 +144,12 @@ __device__ __forceinline__ float pad_coord_slope(float x, int size, int mode) {
 // The four taps of a sample at padded pixel coordinates (ix, iy), in the
 // order (0,0), (1,0), (0,1), (1,1): the bilinear weights, whether each tap
 // lies inside the image, and its plane offset (clamped into the image, so
-// an outside tap's address stays valid).
+// an outside tap's address stays valid; a plane has under 2^31 pixels).
 struct Taps {
   float wx, wy;  // fractional parts
   float weight[4];
   bool inside[4];
-  int64_t offset[4];
+  int offset[4];
 };
 
 __device__ __forceinline__ Taps make_taps(float ix, float iy, int h, int w) {
@@ -161,50 +170,111 @@ __device__ __forceinline__ Taps make_taps(float ix, float iy, int h, int w) {
                   yc <= (float)(h - 1);
     const int xi = (int)clampf(xc, 0.0f, (float)(w - 1));
     const int yi = (int)clampf(yc, 0.0f, (float)(h - 1));
-    t.offset[k] = (int64_t)yi * w + xi;
+    t.offset[k] = yi * w + xi;
   }
   return t;
 }
 
-template <typename T>
-__global__ void grid_sample_fwd_kernel(const T* __restrict__ img,
-                                       const float2* __restrict__ grid,
-                                       T* __restrict__ out, int n, int c,
-                                       int h, int w, int ho, int wo,
-                                       int mode) {
-  const int64_t pixels = (int64_t)n * ho * wo;
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pixels) return;
-  const int64_t plane_out = (int64_t)ho * wo;
-  const int64_t plane_in = (int64_t)h * w;
-  const int64_t b = p / plane_out;
-  const int64_t q = p - b * plane_out;  // ho * Wo + wo
+constexpr int kFwdPx = 4;  // output pixels a forward thread
 
-  const float2 g = grid[p];
-  const float ix = pad_coord(unnormalize(g.x, w), w, mode);
-  const float iy = pad_coord(unnormalize(g.y, h), h, mode);
-  const Taps taps = make_taps(ix, iy, h, w);
-  // border/reflection coordinates are already inside: only zeros padding
-  // drops a tap (an outside tap there has weight 0 anyway)
-  float tw[4];
+// Four consecutive outputs in one store (16 bytes f32, 8 bytes bf16).
+__device__ __forceinline__ void store4(float* p, const float (&v)[kFwdPx]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[kFwdPx]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// Pixels p0 .. p0 + 3 of the flat (n, ho, wo) order. kVec: all four lie in
+// one image (Ho Wo % 4 == 0), the grid is 16-byte and the output 4-element
+// aligned, so the grid comes in two 16-byte loads and the outputs go out
+// in one store; else a pixel at a time, and a pixel past the end reads
+// and writes nothing (its tap weights are 0).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(256)
+    grid_sample_fwd_kernel(const T* __restrict__ img, const float2* __restrict__ grid,
+                           T* __restrict__ out, int pixels, int c, int h, int w,
+                           int plane_out, int mode) {
+  const int p0 = (int)(blockIdx.x * blockDim.x + threadIdx.x) * kFwdPx;
+  if (p0 >= pixels) return;
+  const int plane_in = h * w;
+  float2 g[kFwdPx];
+  if constexpr (kVec) {
+    const float4 a = reinterpret_cast<const float4*>(grid)[p0 / 2];
+    const float4 b = reinterpret_cast<const float4*>(grid)[p0 / 2 + 1];
+    g[0] = make_float2(a.x, a.y);
+    g[1] = make_float2(a.z, a.w);
+    g[2] = make_float2(b.x, b.y);
+    g[3] = make_float2(b.z, b.w);
+  } else {
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
-    tw[t] = mode == kZeros && !taps.inside[t] ? 0.0f : taps.weight[t];
-  const int64_t* toff = taps.offset;
-
-  const T* src = img + b * c * plane_in;
-  T* dst = out + b * c * plane_out + q;
-  for (int ch = 0; ch < c; ++ch) {
-    float acc = 0.0f;
+    for (int k = 0; k < kFwdPx; ++k)
+      g[k] = p0 + k < pixels ? grid[p0 + k] : make_float2(0.0f, 0.0f);
+  }
+  // per pixel: the four taps' weights (0 for a tap that zeros padding
+  // drops; border/reflection coordinates are already inside) and offsets
+  // from the first channel of its image, and its first output
+  float tw[kFwdPx][4];
+  int toff[kFwdPx][4], dst[kFwdPx];
+#pragma unroll
+  for (int k = 0; k < kFwdPx; ++k) {
+    const float ix = pad_coord(unnormalize(g[k].x, w), w, mode);
+    const float iy = pad_coord(unnormalize(g[k].y, h), h, mode);
+    const Taps taps = make_taps(ix, iy, h, w);
+    const int p = p0 + k;
+    const bool live = kVec || p < pixels;
+    const int b = live ? p / plane_out : 0;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const float v = tw[t] == 0.0f ? 0.0f : load_as_float(src + toff[t]);
-      acc = __fadd_rn(acc, __fmul_rn(v, tw[t]));
+      tw[k][t] = !live || (mode == kZeros && !taps.inside[t]) ? 0.0f : taps.weight[t];
+      toff[k][t] = b * c * plane_in + taps.offset[t];
     }
-    store_from_float(dst, acc);
-    src += plane_in;
-    dst += plane_out;
+    dst[k] = live ? b * c * plane_out + (p - b * plane_out) : 0;
   }
+  for (int ch = 0; ch < c; ++ch) {
+    const T* src = img + ch * plane_in;
+    T* o = out + ch * plane_out;
+    float v[kFwdPx][4];
+#pragma unroll
+    for (int k = 0; k < kFwdPx; ++k)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        v[k][t] = tw[k][t] == 0.0f ? 0.0f : load_as_float(src + toff[k][t]);
+    float acc[kFwdPx];
+#pragma unroll
+    for (int k = 0; k < kFwdPx; ++k) {
+      acc[k] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[k] = __fadd_rn(acc[k], __fmul_rn(v[k][t], tw[k][t]));
+    }
+    if constexpr (kVec) {
+      store4(o + dst[0], acc);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kFwdPx; ++k)
+        if (p0 + k < pixels) store_from_float(o + dst[k], acc[k]);
+    }
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* img, const void* grid, void* out, int n, int c, int h,
+               int w, int ho, int wo, int mode, cudaStream_t s) {
+  const int pixels = n * ho * wo;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((pixels + threads * kFwdPx - 1) / (threads * kFwdPx));
+  const bool vec = (ho * wo) % kFwdPx == 0 && (uintptr_t)grid % 16 == 0 &&
+                   (uintptr_t)out % (kFwdPx * sizeof(T)) == 0;
+  if (vec)
+    grid_sample_fwd_kernel<T, true><<<blocks, threads, 0, s>>>(
+        (const T*)img, (const float2*)grid, (T*)out, pixels, c, h, w, ho * wo, mode);
+  else
+    grid_sample_fwd_kernel<T, false><<<blocks, threads, 0, s>>>(
+        (const T*)img, (const float2*)grid, (T*)out, pixels, c, h, w, ho * wo, mode);
+  return (int)cudaGetLastError();
 }
 
 // d_grid: one thread per output pixel, channels summed in order.
@@ -294,21 +364,11 @@ extern "C" int san_grid_sample_fwd(const void* img, const void* grid,
                                    void* out, int n, int c, int h, int w,
                                    int ho, int wo, int padding_mode,
                                    int is_bf16, void* stream) {
-  const int64_t pixels = (int64_t)n * ho * wo;
-  if (pixels == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((pixels + threads - 1) / threads);
+  if ((int64_t)n * ho * wo == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    grid_sample_fwd_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)img, (const float2*)grid, (__nv_bfloat16*)out,
-        n, c, h, w, ho, wo, padding_mode);
-  } else {
-    grid_sample_fwd_kernel<float><<<blocks, threads, 0, s>>>(
-        (const float*)img, (const float2*)grid, (float*)out, n, c, h, w, ho,
-        wo, padding_mode);
-  }
-  return (int)cudaGetLastError();
+  if (is_bf16)
+    return launch_fwd<__nv_bfloat16>(img, grid, out, n, c, h, w, ho, wo, padding_mode, s);
+  return launch_fwd<float>(img, grid, out, n, c, h, w, ho, wo, padding_mode, s);
 }
 
 // d_grid [N, Ho, Wo, 2] f32 from img [N, C, H, W] f32, grid [N, Ho, Wo, 2]

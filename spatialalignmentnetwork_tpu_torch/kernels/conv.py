@@ -4,10 +4,16 @@ autograd Function that joins them.
 
 Replaces the Pallas TPU kernel of the JAX package's `ops/pallas/conv.py`:
 `_conv3x3_s2d` (:98, pallas_call at :117, body `_conv2x2_valid_kernel`
-:67), with its custom VJP (:142-175). One C entry point, two kernels: f32
-on FFMA register tiles, bf16 on the tensor cores (mma.sync fed by
-cp.async); what bounds each at the VarNet's shapes is in the note at the
-top of the CUDA source.
+:67), with its custom VJP (:142-175). One C entry point, two kernels on
+the tensor cores (warp-level mma.sync fed by cp.async, one scaffold): bf16
+on m16n8k16, and f32 as 3xTF32 on m16n8k8 (each f32 operand split into a
+TF32 high and low part, a product as three TF32 products, each exact in
+f32, summed in f32 with round-to-nearest adds: it meets the f32 bar of
+1e-5 of max against float64 that TF32 alone misses, as the CPU emulation
+in tests/test_torch_port_conv.py shows). The f32 kernel is bound by
+bytes where channels are few and elsewhere by its 3 x 2 M N K TF32
+operations (495 TFLOP/s); the note at the top of the CUDA source has the
+design and what bounds each kernel at the VarNet's shapes.
 
 `conv3x3_s2d(x, w3)` takes x [N, H, W, Cin] (f32 or bf16, H and W even)
 and w3 [3, 3, Cin, Cout] (HWIO, cast to x's dtype as the JAX kernel does)
@@ -82,7 +88,7 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ CUDA wrapper
 def conv3x3_cuda(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel of x's dtype (f32: FFMA, bf16: tensor cores): x
+    """Launch the kernel of x's dtype (f32: 3xTF32, bf16: bf16 mma): x
     [N, H, W, Cin] and w3 [3, 3, Cin, Cout], both contiguous f32 or both
     bf16 CUDA tensors; returns [N, H, W, Cout]."""
     check(x, w3)

@@ -192,8 +192,8 @@ def test_wrapper_raises_without_launching(monkeypatch):
 
 def test_mocked_launch_routes_by_dtype_and_counts(monkeypatch):
     """A CUDA-tagged call reaches the C entry point with its pointers, the
-    shape and the dtype flag (1: the bf16 tensor-core kernel, 0: the f32
-    FFMA kernel) on the tensor's stream, and counts one launch under that
+    shape and the dtype flag (1: the bf16 kernel, 0: the f32 3xTF32
+    kernel) on the tensor's stream, and counts one launch under that
     kernel's name; a failed launch raises and counts nothing."""
     calls = []
     rc = [0]
@@ -259,41 +259,103 @@ def test_chip_smoke_ladder_is_the_unets_3x3_convs(in_chans, chans):
 def test_chip_smoke_conv_build_check_reads_hmma_and_spills(monkeypatch):
     """chip_smoke.py's check of the built conv library, on a made-up ptxas
     log and cuobjdump listing: it names each kernel from its mangled name,
-    counts HMMA per kernel and fails on a bf16 kernel without HMMA or with
-    spills, or an f32 kernel with HMMA."""
+    counts each kernel's HMMA of its type (TF32 in the f32 kernel, bf16 in
+    the bf16 kernel) and fails on a kernel of either type without them or
+    with spills."""
     import subprocess
 
     cs = _chip_smoke()
     bf = "_ZN12_GLOBAL__N_119conv3x3_bf16_kernelILi16ELi16ELi8ELi1ELi3EEEvPK13__nv_bfloat16"
-    f32 = "_ZN12_GLOBAL__N_114conv3x3_kernelIfLi8ELi2ELi4EEEvPKT_S3_PS1_iiiiii"
+    f32 = "_ZN12_GLOBAL__N_119conv3x3_tf32_kernelILi8ELi16ELi4ELi1ELi9EEEvPKfS2_Pfiiiiiiiii"
 
-    def ptxas(spill):
+    def ptxas(spill_bf, spill_f32):
         return "\n".join(
             f"ptxas info    : Function properties for {fn}\n"
             f"    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads\n"
             f"ptxas info    : Used {r} registers, used 1 barriers"
-            for fn, r, s in ((bf, 80, spill), (f32, 124, 0)))
+            for fn, r, s in ((bf, 80, spill_bf), (f32, 168, spill_f32)))
 
     def sass(hmma_bf, hmma_f32):
         return "\n".join(
-            f"\t\tFunction : {fn}\n" + "        /*0010*/ HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n" * n
+            f"\t\tFunction : {fn}\n" + f"        /*0010*/ {op} R4, R8, R12, R4 ;\n" * n
             + "        /*0020*/ FFMA R1, R2, R3, R1 ;"
-            for fn, n in ((bf, hmma_bf), (f32, hmma_f32)))
+            for fn, op, n in ((bf, "HMMA.16816.F32.BF16", hmma_bf),
+                              (f32, "HMMA.1688.F32.TF32", hmma_f32)))
 
     monkeypatch.setattr(kernels, "_nvcc", lambda: "/cuda/bin/nvcc")
-    for spill, hb, hf, ok in ((0, 54, 0, True), (8, 54, 0, False),
-                              (0, 0, 0, False), (0, 54, 2, False)):
+    # (bf16 spill, f32 spill, bf16 HMMA, f32 HMMA, passes): both right; a
+    # bf16 spill; bf16 without HMMA; f32 without HMMA; an f32 spill
+    for spill_bf, spill_f32, hb, hf, ok in ((0, 0, 54, 162, True), (8, 0, 54, 162, False),
+                                            (0, 0, 0, 162, False), (0, 0, 54, 0, False),
+                                            (0, 16, 54, 162, False)):
         monkeypatch.setattr(subprocess, "run", lambda cmd, _s=sass(hb, hf), **kw:
                             subprocess.CompletedProcess(cmd, 0, _s, ""))
         if ok:
-            got = cs.check_conv_build("libconv.so", ptxas(spill))
+            got = cs.check_conv_build("libconv.so", ptxas(spill_bf, spill_f32))
             assert got == {"conv3x3_bf16_kernel<16,16,8,1,3>":
                            {"spill": 0, "registers": 80, "hmma": 54},
-                           "conv3x3_kernel<float,8,2,4>":
-                           {"spill": 0, "registers": 124, "hmma": 0}}
+                           "conv3x3_tf32_kernel<8,16,4,1,9>":
+                           {"spill": 0, "registers": 168, "hmma": 162}}
         else:
             with pytest.raises(AssertionError, match="HMMA or spills"):
-                cs.check_conv_build("libconv.so", ptxas(spill))
+                cs.check_conv_build("libconv.so", ptxas(spill_bf, spill_f32))
+    # the f32 kernel's HMMA must be TF32 ones: bf16 HMMA there do not count
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
+        cmd, 0, sass(54, 0).replace(f"{f32}\n", f"{f32}\n        /*0010*/ "
+                                    "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"), ""))
+    with pytest.raises(AssertionError, match="HMMA or spills"):
+        cs.check_conv_build("libconv.so", ptxas(0, 0))
+
+
+def _tf32(v):
+    """float32 v rounded to TF32 as `cvt.rna.tf32.f32` rounds it: 10
+    mantissa bits, ties away from zero (half the weight of the 13 dropped
+    bits added to the magnitude, then the bits dropped)."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0**-10)  # TF32's spacing at 1
+    v = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2**-23, 1 + 1.5 * ulp, 3.0],
+                 np.float32)
+    assert _tf32(v).tolist() == [one + ulp, -(one + ulp), one, one + 2 * ulp, 3.0]
+
+
+@pytest.mark.parametrize("shape", [(1, 20, 20, 288, 288), (1, 10, 10, 576, 288)],
+                         ids=["20x20_288to288", "10x10_576to288"])
+def test_3xtf32_emulation_meets_the_f32_bar_and_tf32_misses_it(shape):
+    """The f32 kernel's arithmetic (csrc/conv.cu, 3xTF32), emulated on the
+    CPU at the ladder's deepest conv and at CONV_EDGES' K = 5184: each f32
+    operand split into hi = tf32(v) and lo = tf32(v - hi), each tap's
+    products as lo.hi + hi.lo + hi.hi (every product of two TF32 values is
+    exact in f32), summed in f32. It lands within chip_smoke.CONV_TOL of
+    max of float64, the bar the kernel is held to on the card; plain TF32
+    (hi.hi alone) misses that bar on the same inputs."""
+    cs = _chip_smoke()
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(40)
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    xh, kh = _tf32(x), _tf32(k)
+    xl, kl = _tf32(x - xh), _tf32(k - kh)
+    pad = lambda a: torch.nn.functional.pad(torch.from_numpy(a), (0, 0, 1, 1, 1, 1))
+    xh_p, xl_p = pad(xh), pad(xl)
+    tf32x3 = tf32 = 0
+    for ky in range(3):
+        for kx in range(3):
+            hi, lo = xh_p[:, ky:ky + h, kx:kx + w], xl_p[:, ky:ky + h, kx:kx + w]
+            b_hi, b_lo = torch.from_numpy(kh[ky, kx]), torch.from_numpy(kl[ky, kx])
+            tf32x3 = tf32x3 + ((lo @ b_hi + hi @ b_lo) + hi @ b_hi)
+            tf32 = tf32 + hi @ b_hi
+    assert tf32x3.dtype == torch.float32
+    want = kconv.conv3x3_plain(torch.from_numpy(x).double(), torch.from_numpy(k).double())
+    scale = float(want.abs().max())
+    err3 = float((tf32x3.double() - want).abs().max()) / scale
+    err1 = float((tf32.double() - want).abs().max()) / scale
+    assert err3 <= cs.CONV_TOL < err1, (err3, err1)
+    assert cs.CONV_TOL == 1e-5
 
 
 def test_chip_smoke_conv_ladder_runs_on_cpu():
