@@ -11,16 +11,20 @@ failure:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the paths from csrc/, one nvcc per source,
-     all at once; read the conv library's SASS (cuobjdump) and ptxas log:
-     tensor-core HMMA in every kernel instance (TF32 ones in the f32
-     kernels, bf16 ones in the bf16 kernels), no spills in any;
+     all at once; read the conv and MI libraries' SASS (cuobjdump) and
+     ptxas logs: tensor-core HMMA in every conv kernel instance (TF32 ones
+     in the f32 kernels, bf16 ones in the bf16 kernels) and TF32 ones in
+     the MI backward's pixel kernel, no spills in any of their kernels;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and more (all padding modes, C = 2, a
      non-square plane, augmentation's 352 plane, an output plane of odd
      width and odd size, a grid only 8-byte aligned, the smallest SSIM and
      LNCC planes, grids with out-of-range coordinates, MI values outside
-     the bin range and 32 bins, the MI backward near the top bin held to
-     float64; the 3x3 conv forward and input gradient, f32 and bf16, held
+     the bin range and 2, 32 and 33 bins, the MI backward near the top bin
+     held to float64, its bits run to run and at ragged pixel counts from
+     inputs that end where mapped memory ends (phases 2 and 3 for MI
+     alone: `python3 -c "import chip_smoke; chip_smoke.mi_phases()"`); the
+     3x3 conv forward and input gradient, f32 and bf16, held
      to float64 on every conv of the ladder of phase 9 and on ragged
      planes, channels and batches), then its time beside its plain version, the one-call PyTorch equivalent where
      there is one (a yardstick the port never calls) and its bound on an
@@ -415,8 +419,13 @@ def check_grid_sample(rng):
 
 
 def bound(nbytes, flops, peak=F32_FLOPS):
-    """(least ms for the work on an H100 SXM, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    """(least ms for the work on an H100 SXM, "bytes" or "operations");
+    `flops` at `peak`, or a list of (flops, peak) for work on units that
+    issue side by side (the tensor cores and the FP32 pipe), where the
+    slowest unit's share sets the time."""
+    t_ops = (max(f / pk for f, pk in flops) if isinstance(flops, list)
+             else flops / peak)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -685,8 +694,10 @@ def check_lncc(rng):
 
 def check_mi(rng):
     """The MI forward and backward kernels vs their plain versions on the
-    card, and the backward near the top bin against float64; returns their
-    `kernels` entries (without the launch counts)."""
+    card (the ragged bin counts 2 and 33 among the cases), the backward
+    near the top bin against float64, the backward's bits run to run and,
+    at the ragged pixel counts, from inputs that end where mapped memory
+    ends; returns their `kernels` entries (without the launch counts)."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
@@ -695,13 +706,16 @@ def check_mi(rng):
     err = {"fwd": 0.0, "bwd": 0.0}
     one = torch.ones((), device=dev)
     full = (TRAIN_BATCH, 1, SHAPE, SHAPE)
+    tails = [(2, 1, 317, 301), (1, 1, 7, 7)]
     cases = [(full, (0.0, 1.0), {}, "phantoms"),
              (full, (0.0, 1.0), {}, "random"),
              ((TRAIN_BATCH, 2, SHAPE, SHAPE), (0.0, 1.0), {}, "random"),
-             ((2, 1, 317, 301), (0.0, 1.0), {}, "random"),
-             ((1, 1, 7, 7), (0.0, 1.0), {}, "random"),
+             (tails[0], (0.0, 1.0), {}, "random"),
+             (tails[1], (0.0, 1.0), {}, "random"),
              (full, (-0.3, 1.3), {}, "random"),
-             (full, (-0.5, 1.5), dict(bins=32, minv=-0.5, maxv=1.5), "random")]
+             (full, (-0.5, 1.5), dict(bins=32, minv=-0.5, maxv=1.5), "random"),
+             (full, (0.0, 1.0), dict(bins=33), "random"),
+             (tails[0], (0.0, 1.0), dict(bins=2), "random")]
     for shape, (lo, hi), kw, kind in cases:
         if kind == "phantoms":
             I, J = (t.to(dev) for t in registration_pair(rng, shape[0], shape[2]))
@@ -711,6 +725,18 @@ def check_mi(rng):
                 rng.standard_normal(shape).astype(np.float32)).to(dev)).clamp(lo, hi).contiguous()
         loss, stats = kmi.mi_fwd_cuda(I, J, **kw)
         dI, dJ = kmi.mi_bwd_cuda(I, J, stats, one, **kw)
+        again = kmi.mi_bwd_cuda(I, J, stats, one, **kw)
+        if not (torch.equal(again[0], dI) and torch.equal(again[1], dJ)):
+            raise AssertionError(f"mi_bwd {shape} {kw}: bits differ run to run")
+        if shape in tails:
+            # a read past I, J or the statistics fails with an illegal address
+            with guarded(I) as gI, guarded(J) as gJ, guarded(stats) as gs:
+                gloss, gstats = kmi.mi_fwd_cuda(gI, gJ, **kw)
+                gI_, gJ_ = kmi.mi_bwd_cuda(gI, gJ, gs, one, **kw)
+                torch.cuda.synchronize()
+            if not (torch.equal(gloss, loss) and torch.equal(gstats, stats)
+                    and torch.equal(gI_, dI) and torch.equal(gJ_, dJ)):
+                raise AssertionError(f"mi {shape} {kw}: guarded inputs give other bits")
         # the plain version in float64 and, for the log, in f32
         want, wstats = kmi.mi_fwd_plain(I.double(), J.double(), **kw)
         wI, wJ = kmi.mi_bwd_plain(I.double(), J.double(), wstats, one.double(), **kw)
@@ -726,7 +752,8 @@ def check_mi(rng):
             f"{abs(float(ploss.double() - want)):.3g}, stats "
             f"{rel_err(pstats.double(), wstats):.3g}, dI/dJ "
             f"{max(rel_err(pI.double(), wI), rel_err(pJ.double(), wJ)):.3g}; "
-            f"loss {float(loss):.6f}")
+            f"loss {float(loss):.6f}; dI/dJ the same bits run to run"
+            + (", and from guarded inputs" if shape in tails else ""))
         if not (e <= MI_LOSS_ATOL and es <= MI_STATS_TOL and eb <= MI_GRAD_TOL):
             raise AssertionError(f"mi {shape} {kw} {kind}: loss {e}, stats {es}, "
                                  f"grads {eb}")
@@ -751,36 +778,56 @@ def check_mi(rng):
     if not e64 <= MI_F64_TOL:
         raise AssertionError(f"mi_bwd near the top bin: {e64} of max |grad| from f64")
 
-    sets = []
-    for _ in range(20):  # 20 x 3.3 MB of inputs > 50 MB of L2
-        I = torch.from_numpy(rng.random(full).astype(np.float32)).to(dev)
-        J = (I * 0.9 + 0.05).contiguous()
-        sets.append((I, J, kmi.mi_fwd_cuda(I, J)[1], one))
-    ms_fwd, t_fwd = time_all({
-        "plain": lambda i, j, s, g: kmi.mi_fwd_plain(i, j),
-        "kernel": lambda i, j, s, g: kmi.mi_fwd_cuda(i, j),
-    }, sets)
-    ms_bwd, t_bwd = time_all({
-        "plain": lambda i, j, s, g: kmi.mi_bwd_plain(i, j, s, g),
-        "kernel": lambda i, j, s, g: kmi.mi_bwd_cuda(i, j, s, g),
-    }, sets)
-    px = int(np.prod(full))
-    B = 64
-    n_stats = TRAIN_BATCH * (2 * B + B * B)
-    b_fwd = 8 * px + 4 * n_stats + 4  # I, J read; stats and the loss written
-    b_bwd = 8 * px + 4 * n_stats + 4 + 8 * px  # I, J, stats, g read; dI, dJ written
-    # operations a pixel pair: the forward's responses (5 each, both
-    # images), joint Gram (2 B^2) and marginals; the backward's two
-    # B x B matrix-vector products (4 B^2), two sets of responses and the
-    # per-bin sum (6 a bin, both images)
-    f_fwd = (2 * B * B + 12 * B) * px
-    f_bwd = (4 * B * B + 32 * B) * px
-    log(f"mi_fwd timing {list(full)}: {t_fwd} ms ({f_fwd / 1e9:.2f} GFLOP); mi_bwd: "
-        f"{t_bwd} ms ({f_bwd / 1e9:.2f} GFLOP); no one-call PyTorch equivalent")
+    (ms_fwd, b_fwd, f_fwd), (ms_bwd, b_bwd, f_bwd) = time_mi(rng, full)
     return [
         entry(kmi.FWD, "mi.cu", "mi.py:106", err["fwd"], ms_fwd, b_fwd, f_fwd),
         entry(kmi.BWD, "mi.cu", "mi.py:246", err["bwd"], ms_bwd, b_bwd, f_bwd),
     ]
+
+
+def time_mi(rng, shape, plain=True):
+    """mi_fwd's and mi_bwd's device ms at `shape` (64 bins) on 20 sets of I
+    and J = 0.9 I + 0.05, against their plain versions where `plain`,
+    logged beside their bounds (mi_bwd's with its products as 3xTF32 and
+    all on FFMA). Returns ({name: ms}, bytes, flops) for each."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
+
+    dev = torch.device("cuda")
+    one = torch.ones((), device=dev)
+    sets = []
+    for _ in range(20):  # at [4,1,320,320], 20 x 3.3 MB of inputs > 50 MB of L2
+        I = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        J = (I * 0.9 + 0.05).contiguous()
+        sets.append((I, J, kmi.mi_fwd_cuda(I, J)[1], one))
+    fwd = {"kernel": lambda i, j, s, g: kmi.mi_fwd_cuda(i, j)}
+    bwd = {"kernel": lambda i, j, s, g: kmi.mi_bwd_cuda(i, j, s, g)}
+    if plain:
+        fwd = {"plain": lambda i, j, s, g: kmi.mi_fwd_plain(i, j), **fwd}
+        bwd = {"plain": lambda i, j, s, g: kmi.mi_bwd_plain(i, j, s, g), **bwd}
+    ms_fwd, t_fwd = time_all(fwd, sets)
+    ms_bwd, t_bwd = time_all(bwd, sets)
+    px = int(np.prod(shape))
+    B = 64
+    n_stats = shape[0] * (2 * B + B * B)
+    b_fwd = 8 * px + 4 * n_stats + 4  # I, J read; stats and the loss written
+    b_bwd = 8 * px + 4 * n_stats + 4 + 8 * px  # I, J, stats, g read; dI, dJ written
+    # operations a pixel pair: the forward's responses (5 each, both
+    # images), joint Gram (2 B^2) and marginals; the backward's two
+    # B x B matrix-vector products (4 B^2; on the tensor cores as 3xTF32,
+    # so at 495 / 3 TFLOP/s), and beside them on the FP32 pipe its
+    # responses, each once (5 a bin, both images), and per-bin terms (6 a
+    # bin, both images)
+    f_fwd = (2 * B * B + 12 * B) * px
+    f_bwd = [(4 * B * B * px, F32X3_FLOPS), (22 * B * px, F32_FLOPS)]
+    ffma = bound(b_bwd, sum(f for f, _ in f_bwd))[0]
+    log(f"mi timing {list(shape)}: mi_fwd {t_fwd} ms ({f_fwd / 1e9:.2f} GFLOP, bound "
+        f"{bound(b_fwd, f_fwd)[0]:.5f} ms); mi_bwd {t_bwd} ms "
+        f"({sum(f for f, _ in f_bwd) / 1e9:.2f} GFLOP), bound "
+        f"{bound(b_bwd, f_bwd)[0]:.5f} ms with the products as 3xTF32, {ffma:.5f} ms "
+        "all on FFMA; no one-call PyTorch equivalent")
+    return (ms_fwd, b_fwd, f_fwd), (ms_bwd, b_bwd, f_bwd)
 
 
 # ------------------------------------------------------------- serving
@@ -1261,31 +1308,48 @@ def conv_ladder(size):
 
 
 def kernel_label(mangled):
-    """'conv3x3_bf16_kernel<16,16,8,1,3>' from a mangled template name."""
+    """'conv3x3_bf16_kernel<16,16,8,1,3>' from the mangled name of a
+    template instance in the sources' anonymous namespace,
+    'mi_bwd_pixel_kernel' from a plain kernel's."""
     import re
 
-    base = re.search(r"\d+(conv3x3\w*?_kernel)I", mangled)
-    args = re.findall(r"Li(\d+)E", mangled)
-    return f"{base.group(1) if base else mangled}<{','.join(args)}>"
+    m = re.match(r"_ZN(\d+)", mangled)  # the namespace, then the kernel
+    n = m and re.match(r"\d+", mangled[m.end() + int(m.group(1)):])
+    if not n:
+        return mangled
+    start = m.end() + int(m.group(1)) + n.end()
+    end = start + int(n.group())
+    name = mangled[start:end]
+    if mangled[end:end + 1] != "I":
+        return name
+    return f"{name}<{','.join(re.findall(r'Li(\d+)E', mangled[end:]))}>"
 
 
-# each conv kernel (by dtype) and its tensor-core instruction in SASS: the
-# f32 kernel's 3xTF32 runs m16n8k8 TF32, the bf16 kernel m16n8k16 bf16
-CONV_KERNELS = {"f32": ("conv3x3_tf32_kernel", "HMMA.1688.F32.TF32"),
-                "bf16": ("conv3x3_bf16_kernel", "HMMA.16816.F32.BF16")}
+# by source, the kernels that must run on the tensor cores and the HMMA
+# each must show in its SASS: the f32 conv's and the MI backward's 3xTF32
+# run m16n8k8 TF32, the bf16 conv m16n8k16 bf16
+HMMA = {"conv.cu": {"conv3x3_tf32_kernel": "HMMA.1688.F32.TF32",
+                    "conv3x3_bf16_kernel": "HMMA.16816.F32.BF16"},
+        "mi.cu": {"mi_bwd_pixel_kernel": "HMMA.1688.F32.TF32"}}
+# sources whose every kernel of the stem is one HMMA names: no conv kernel
+# off the tensor cores
+TENSOR_CORES_ONLY = {"conv.cu": "conv3x3"}
 
 
-def check_conv_build(lib, compiler_log):
-    """The conv library as compiled: each kernel's registers and spills
-    (from nvcc's -Xptxas -v log) and its HMMA instructions of its type
-    (cuobjdump -sass; CONV_KERNELS). Fails unless every f32 and every bf16
-    kernel instance runs its HMMA and spills nothing. Returns {kernel:
+def check_build(source, lib, compiler_log):
+    """A kernel library as compiled: each kernel's registers and spills
+    (from nvcc's -Xptxas -v log) and its HMMA instructions (cuobjdump
+    -sass), of the type HMMA[source] requires where it names the kernel.
+    Fails unless every kernel HMMA[source] names has instances and each
+    runs its HMMA, no kernel of the source spills, and (TENSOR_CORES_ONLY)
+    no conv kernel is outside HMMA's. Returns {kernel:
     {registers, spill bytes, hmma}}."""
     import os
     import re
 
     from spatialalignmentnetwork_tpu_torch import kernels
 
+    required = HMMA.get(source, {})
     info, fn = {}, None
     for ln in compiler_log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
@@ -1307,24 +1371,27 @@ def check_conv_build(lib, compiler_log):
         if m:
             fn = m.group(1)
             info.setdefault(fn, {})["hmma"] = 0
-            hmma = next((op for prefix, op in CONV_KERNELS.values() if prefix in fn), "HMMA")
+            hmma = next((op for prefix, op in required.items() if prefix in fn), "HMMA")
         elif fn and hmma in ln:
             info[fn]["hmma"] += 1
-    out = {kernel_label(k): v for k, v in info.items() if "conv3x3" in k}
-    kinds = {tag: {k: v for k, v in out.items() if k.startswith(prefix)}
-             for tag, (prefix, _) in CONV_KERNELS.items()}
+    out = {kernel_label(k): v for k, v in info.items()}
+    kinds = {prefix: {k: v for k, v in out.items() if k.startswith(prefix)}
+             for prefix in required}
     for k, v in sorted(out.items()):
-        log(f"conv.cu {k}: {v.get('registers', 'n/a')} registers, "
+        log(f"{source} {k}: {v.get('registers', 'n/a')} registers, "
             f"{v.get('spill', 'n/a')} spill bytes, {v.get('hmma')} HMMA")
     if not compiler_log:
-        log("conv.cu: library reused from the build cache, no ptxas log to read")
-    bad = [k for k, v in out.items() if not v.get("hmma") or v.get("spill", 0)]
-    if not all(kinds.values()) or bad or len(out) != sum(map(len, kinds.values())):
-        raise AssertionError(f"conv.cu: kernels {sorted(out)}; failing (HMMA or "
-                             f"spills) {bad}")
-    log("conv.cu SASS: " + ", ".join(
-        f"{sum(v['hmma'] for v in ks.values())} {CONV_KERNELS[tag][1]} in {len(ks)} "
-        f"{tag} kernels" for tag, ks in kinds.items()))
+        log(f"{source}: library reused from the build cache, no ptxas log to read")
+    bad = [k for k, v in out.items() if v.get("spill", 0)]
+    bad += [k for ks in kinds.values() for k, v in ks.items() if not v.get("hmma")]
+    stem = TENSOR_CORES_ONLY.get(source)
+    bad += [k for k in out if stem and stem in k and not any(map(k.startswith, required))]
+    if not all(kinds.values()) or bad:
+        raise AssertionError(f"{source}: kernels {sorted(out)}; failing (HMMA or "
+                             f"spills) {sorted(bad)}")
+    log(f"{source} SASS: " + ", ".join(
+        f"{sum(v['hmma'] for v in ks.values())} {required[prefix]} in {len(ks)} "
+        f"{prefix} instance(s)" for prefix, ks in kinds.items()))
     return out
 
 
@@ -1527,11 +1594,65 @@ def conv_phases():
 
     f32_precision()
     log(f"card: {nvidia_smi()}")
-    check_conv_build(*build_kernels(["conv.cu"])["conv.cu"])
+    check_build("conv.cu", *build_kernels(["conv.cu"])["conv.cu"])
     rng = np.random.default_rng(0)
     conv_err = check_conv(rng)
     check_conv_ladder(rng)
     time_conv_ladder(rng, conv_err)
+    return 0
+
+
+def profile_mi(iters=10):
+    """Device us a launch of each MI kernel (torch.profiler), over `iters`
+    calls of the forward and the backward at [4,1,320,320]: how each entry
+    point's time splits over its launches."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
+
+    rng = np.random.default_rng(0)
+    I = torch.from_numpy(rng.random((TRAIN_BATCH, 1, SHAPE, SHAPE)).astype(np.float32)).cuda()
+    J = (I * 0.9 + 0.05).contiguous()
+    one = torch.ones((), device=I.device)
+    stats = kmi.mi_fwd_cuda(I, J)[1]
+    kmi.mi_bwd_cuda(I, J, stats, one)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            kmi.mi_fwd_cuda(I, J)
+            kmi.mi_bwd_cuda(I, J, stats, one)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"\b(mi_\w+_kernel)\(", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            out[name.group(1)] = e.device_time
+    log(f"mi kernels, device us a launch over {iters} calls [4,1,320,320]: {out}")
+    return out
+
+
+def mi_phases():
+    """The MI kernels' phases alone (the build and SASS check of mi.cu,
+    the kernels against their plain versions and float64, their times and
+    each launch's share),
+    for work on the MI kernels; the whole run is `main`. Returns the
+    process's exit code."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    log(f"card: {nvidia_smi()}")
+    check_build("mi.cu", *build_kernels(["mi.cu"])["mi.cu"])
+    rng = np.random.default_rng(0)
+    for e in check_mi(rng):
+        log(json.dumps(e))
+    for side in (SHAPE // 2, SHAPE // 4):  # ms_mi_loss's smaller levels
+        time_mi(rng, (TRAIN_BATCH, 1, side, side), plain=False)
+    profile_mi()
     return 0
 
 
@@ -1548,7 +1669,8 @@ def main():
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     built = build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu", "conv.cu"])
-    check_conv_build(*built["conv.cu"])
+    for source in HMMA:
+        check_build(source, *built[source])
     rng = np.random.default_rng(0)
     entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng),
                *check_lncc(rng), *check_mi(rng)]

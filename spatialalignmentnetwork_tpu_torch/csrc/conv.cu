@@ -67,8 +67,8 @@
 // The tensor cores do not round an mma's f32 sum to nearest, and a
 // running sum so added to a thousand times drifts: with the mma adding
 // straight into it, the ladder's 40: 288->144 (K = 2592) landed 2.0e-5 of
-// max from float64, twice the bar, on an NVIDIA H100 (variants timed by
-// scripts/torch_port_ab.py). So a K step's 27 mma (9 taps, 3 products, 8
+// max from float64, twice the bar, on an NVIDIA H100 (variants timed
+// with `conv_phases()`). So a K step's 27 mma (9 taps, 3 products, 8
 // channels) sum into a fresh partial accumulator, and FADD (round to
 // nearest) adds that into the running sum, as FFMA did: 6.2e-7 there, at
 // 1% more time. The split is one pass of the
@@ -691,7 +691,7 @@ int launch_72(const void* x, const void* w, void* out, int n, int h, int wd, int
 // takes two images (NB = 2: 8x8 by 12 warps, 4x8 by 6) where the grid
 // still gives the card some 8 warps an SM (1000 over its 132 SMs), else
 // one, as bf16. NVIDIA H100 80GB HBM3 at 700 W, batch 8, ms (variants timed
-// in one call by scripts/torch_port_ab.py): cascade 20: 288->288 NB 2
+// in one call with `conv_phases()`): cascade 20: 288->288 NB 2
 // 0.149, NB 4 0.153, NB 1 0.220 (cuDNN f32 0.223); sensitivity 20: 128->128
 // (120 blocks at NB 2) NB 1 0.0525, NB 2 0.0568; 40: 288->144 NB 2 0.276,
 // NB 1 0.291.

@@ -5,8 +5,8 @@ Function that joins them.
 Replaces the Pallas TPU kernels of the JAX package's `ops/pallas/mi.py`:
 `_forward` / `_mi_kernel` (pallas_call at :106) and `_backward` /
 `_mi_bwd_kernel` (pallas_call at :246), with their custom VJP (:429-446).
-Bound on the H100 by f32 operations: see the note at the top of the CUDA
-source.
+Bound on the H100 by operations (the backward's two products on the
+tensor cores as 3xTF32): see the note at the top of the CUDA source.
 
 `MILoss.apply(I, J, bins, sigma, minv, maxv)` takes real f32 [N, ...]
 tensors of one shape (each sample's M = numel / N pixels form one
@@ -33,6 +33,9 @@ SOURCE = "mi.cu"
 MAX_BINS = 64  # the CUDA kernels' padded bin count
 CHUNK = 2048  # pixels a block in the CUDA forward
 _PADDED_STATS = 2 * MAX_BINS + MAX_BINS * MAX_BINS
+# the backward's coefficients a sample: -w_I / m, -w_J / m, then EQ and
+# EQ^T, each as its 3xTF32 hi and lo parts
+_COEF = 2 * MAX_BINS + 4 * MAX_BINS * MAX_BINS
 
 
 # ------------------------------------------------------------ plain versions
@@ -84,12 +87,10 @@ def mi_fwd_plain(I: torch.Tensor, J: torch.Tensor, bins: int = 64,
     return neg_mi(stats, vi.shape[1], bins, sigma).mean(), stats
 
 
-def dloss_dresponses(stats: torch.Tensor, p_i: torch.Tensor, p_j: torch.Tensor,
-                     m: int, bins: int, sigma: float):
-    """dL/dp_I and dL/dp_J [N, B, M] of the per-sample -MI, from the
-    statistics (ops/pallas/mi.py:333-375): the entropy weights w of the
-    marginals and the joint coefficients EQ, then
-    dL/dp_I = -w_I/m + (EQ p_J)/norm2d, dL/dp_J = -w_J/m + (EQ^T p_I)/norm2d."""
+def entropy_coefficients(stats: torch.Tensor, m: int, bins: int, sigma: float):
+    """(-w_I/m [N, B], -w_J/m [N, B], EQ [N, B, B]) of the per-sample -MI,
+    from the statistics (ops/pallas/mi.py:333-349): the entropy weights w
+    of the marginals and the joint coefficients EQ."""
     s_i, s_j, joint = _unpack(stats, bins)
 
     def marg_w(s):  # d(ent)/d(s_b) = w_b / m for pn = (s / m) / T
@@ -99,14 +100,23 @@ def dloss_dresponses(stats: torch.Tensor, p_i: torch.Tensor, p_j: torch.Tensor,
         lc = torch.log(pn + 1e-10) + pn / (pn + 1e-10)
         return -(lc - (lc * pn).sum(1, keepdim=True)) / T
 
-    norm2d = 2.0 * math.pi * sigma * sigma
-    G = joint / norm2d
+    G = joint / (2.0 * math.pi * sigma * sigma)
     Sg = G.sum((1, 2), keepdim=True) + 1e-10
     q = G / Sg
     lq = torch.log(q + 1e-10) + q / (q + 1e-10)
-    EQ = -(lq - (lq * q).sum((1, 2), keepdim=True)) / Sg  # [N, B, B]
-    return ((-marg_w(s_i) / m)[:, :, None] + (EQ @ p_j) / norm2d,
-            (-marg_w(s_j) / m)[:, :, None] + (EQ.transpose(1, 2) @ p_i) / norm2d)
+    EQ = -(lq - (lq * q).sum((1, 2), keepdim=True)) / Sg
+    return -marg_w(s_i) / m, -marg_w(s_j) / m, EQ
+
+
+def dloss_dresponses(stats: torch.Tensor, p_i: torch.Tensor, p_j: torch.Tensor,
+                     m: int, bins: int, sigma: float):
+    """dL/dp_I and dL/dp_J [N, B, M] of the per-sample -MI (ops/pallas/
+    mi.py:333-375): dL/dp_I = -w_I/m + (EQ p_J)/norm2d, dL/dp_J = -w_J/m +
+    (EQ^T p_I)/norm2d, with the coefficients of `entropy_coefficients`."""
+    w_i, w_j, EQ = entropy_coefficients(stats, m, bins, sigma)
+    norm2d = 2.0 * math.pi * sigma * sigma
+    return (w_i[:, :, None] + (EQ @ p_j) / norm2d,
+            w_j[:, :, None] + (EQ.transpose(1, 2) @ p_i) / norm2d)
 
 
 def mi_bwd_plain(I: torch.Tensor, J: torch.Tensor, stats: torch.Tensor,
@@ -193,7 +203,7 @@ def mi_bwd_cuda(I: torch.Tensor, J: torch.Tensor, stats: torch.Tensor,
                          f"device, got {tuple(stats.shape)} on {stats.device}")
     g = upstream("mi", gout, I)
     m = I.numel() // n
-    coef = torch.empty(n * _PADDED_STATS, dtype=torch.float32, device=I.device)
+    coef = torch.empty(n * _COEF, dtype=torch.float32, device=I.device)
     dI = torch.empty_like(I)
     dJ = torch.empty_like(J)
     rc = _launcher("san_mi_bwd")(

@@ -257,11 +257,12 @@ def test_chip_smoke_ladder_is_the_unets_3x3_convs(in_chans, chans):
 
 
 def test_chip_smoke_conv_build_check_reads_hmma_and_spills(monkeypatch):
-    """chip_smoke.py's check of the built conv library, on a made-up ptxas
-    log and cuobjdump listing: it names each kernel from its mangled name,
-    counts each kernel's HMMA of its type (TF32 in the f32 kernel, bf16 in
-    the bf16 kernel) and fails on a kernel of either type without them or
-    with spills."""
+    """chip_smoke.py's check of the built conv and MI libraries, on made-up
+    ptxas logs and cuobjdump listings: it names each kernel from its
+    mangled name, counts each kernel's HMMA of its type (TF32 in the f32
+    conv kernel and the MI backward's pixel kernel, bf16 in the bf16 conv
+    kernel) and fails on a kernel of either type without them, or on any
+    kernel with spills."""
     import subprocess
 
     cs = _chip_smoke()
@@ -291,20 +292,56 @@ def test_chip_smoke_conv_build_check_reads_hmma_and_spills(monkeypatch):
         monkeypatch.setattr(subprocess, "run", lambda cmd, _s=sass(hb, hf), **kw:
                             subprocess.CompletedProcess(cmd, 0, _s, ""))
         if ok:
-            got = cs.check_conv_build("libconv.so", ptxas(spill_bf, spill_f32))
+            got = cs.check_build("conv.cu", "libconv.so", ptxas(spill_bf, spill_f32))
             assert got == {"conv3x3_bf16_kernel<16,16,8,1,3>":
                            {"spill": 0, "registers": 80, "hmma": 54},
                            "conv3x3_tf32_kernel<8,16,4,1,9>":
                            {"spill": 0, "registers": 168, "hmma": 162}}
         else:
             with pytest.raises(AssertionError, match="HMMA or spills"):
-                cs.check_conv_build("libconv.so", ptxas(spill_bf, spill_f32))
+                cs.check_build("conv.cu", "libconv.so", ptxas(spill_bf, spill_f32))
     # the f32 kernel's HMMA must be TF32 ones: bf16 HMMA there do not count
     monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: subprocess.CompletedProcess(
         cmd, 0, sass(54, 0).replace(f"{f32}\n", f"{f32}\n        /*0010*/ "
                                     "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"), ""))
     with pytest.raises(AssertionError, match="HMMA or spills"):
-        cs.check_conv_build("libconv.so", ptxas(0, 0))
+        cs.check_build("conv.cu", "libconv.so", ptxas(0, 0))
+
+    # mi.cu: the backward's pixel kernel must show TF32 HMMA (3xTF32); no
+    # kernel of the source may spill, the FFMA ones included. The names as
+    # nvcc 12.8 mangles them, the anonymous namespace named after the file
+    mi = {name: f"_ZN37_GLOBAL__N__4ff34e87_5_mi_cu_70cd0373{len(name)}{name}EPKfS1_Pflf"
+          for name in ("mi_fwd_partial_kernel", "mi_bwd_coef_kernel", "mi_bwd_pixel_kernel")}
+
+    def mi_ptxas(spill_coef):
+        return "\n".join(
+            f"ptxas info    : Function properties for {fn}\n"
+            f"    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads\n"
+            f"ptxas info    : Used {r} registers, used 1 barriers"
+            for fn, r, s in ((mi["mi_fwd_partial_kernel"], 64, 0),
+                             (mi["mi_bwd_coef_kernel"], 32, spill_coef),
+                             (mi["mi_bwd_pixel_kernel"], 120, 0)))
+
+    def mi_sass(op):
+        return "\n".join(
+            f"\t\tFunction : {fn}\n" + (f"        /*0010*/ {op} R4, R8, R12, R4 ;\n" * 48
+                                        if "pixel" in fn else "")
+            + "        /*0020*/ FFMA R1, R2, R3, R1 ;" for fn in mi.values())
+
+    # (coef spill, pixel kernel's HMMA, passes): right; a spill in an FFMA
+    # kernel; bf16 HMMA where TF32 ones are required
+    for spill, op, ok in ((0, "HMMA.1688.F32.TF32", True), (8, "HMMA.1688.F32.TF32", False),
+                          (0, "HMMA.16816.F32.BF16", False)):
+        monkeypatch.setattr(subprocess, "run", lambda cmd, _s=mi_sass(op), **kw:
+                            subprocess.CompletedProcess(cmd, 0, _s, ""))
+        if ok:
+            assert cs.check_build("mi.cu", "libmi.so", mi_ptxas(spill)) == {
+                "mi_fwd_partial_kernel": {"spill": 0, "registers": 64, "hmma": 0},
+                "mi_bwd_coef_kernel": {"spill": 0, "registers": 32, "hmma": 0},
+                "mi_bwd_pixel_kernel": {"spill": 0, "registers": 120, "hmma": 48}}
+        else:
+            with pytest.raises(AssertionError, match="HMMA or spills"):
+                cs.check_build("mi.cu", "libmi.so", mi_ptxas(spill))
 
 
 def _tf32(v):

@@ -251,6 +251,105 @@ def test_mi_backward_does_not_cancel_near_the_top_bin():
     assert float(np.abs(cancelling - f64[1][0]).max()) > tol
 
 
+def _tf32(v):
+    """float32 v rounded to TF32 as `cvt.rna.tf32.f32` rounds it: 10
+    mantissa bits, ties away from zero (half the weight of the 13 dropped
+    bits added to the magnitude, then the bits dropped)."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mi_grads_emulated(I, J, three):
+    """dL/dI, dL/dJ of the f32 MI loss with the backward's two products
+    (EQ p_J and EQ^T p_I) as csrc/mi.cu's pixel kernel takes them: every
+    operand split into hi = tf32(v) and lo = tf32(v - hi), each product as
+    lo.hi + hi.lo + hi.hi (three = True, 3xTF32) or hi.hi alone (TF32),
+    each product of two TF32 values exact in f32, summed in f32."""
+    n, bins, sigma = I.shape[0], 64, 1.0 / 64
+    stats = kmi.mi_fwd_plain(I, J)[1]
+    vi, vj = I.reshape(n, -1), J.reshape(n, -1)
+    centers, p_i = kmi._parzen(vi, bins, sigma, 0.0, 1.0)
+    _, p_j = kmi._parzen(vj, bins, sigma, 0.0, 1.0)
+    w_i, w_j, EQ = kmi.entropy_coefficients(stats, vi.shape[1], bins, sigma)
+
+    def product(a, b):
+        hi = lambda x: torch.from_numpy(_tf32(x.contiguous().numpy()))
+        ah, bh = hi(a), hi(b)
+        if not three:
+            return ah @ bh
+        al, bl = hi(a - ah), hi(b - bh)
+        return (al @ bh + ah @ bl) + ah @ bh
+
+    norm2d = 2.0 * math.pi * sigma * sigma
+    dLdp_i = w_i[:, :, None] + product(EQ, p_j) / norm2d
+    dLdp_j = w_j[:, :, None] + product(EQ.transpose(1, 2), p_i) / norm2d
+
+    def pixel_grad(dLdp, p, v):  # subtract, then reduce over bins
+        return ((dLdp * p) * (centers[None, :, None] - v[:, None, :])).sum(1) / (
+            sigma * sigma * n)
+
+    return pixel_grad(dLdp_i, p_i, vi).numpy(), pixel_grad(dLdp_j, p_j, vj).numpy()
+
+
+@pytest.mark.parametrize("case", ["near_top_bin_24x24", "random_64x64"])
+def test_mi_3xtf32_emulation_meets_the_f64_bar_and_tf32_misses_it(case):
+    """The MI backward kernel's arithmetic (csrc/mi.cu, 3xTF32 products on
+    the tensor cores), emulated on the CPU: on the inputs of
+    test_mi_backward_does_not_cancel_near_the_top_bin it lands within
+    chip_smoke.MI_F64_TOL = 3e-6 of max of the float64 gradient (torch
+    autograd of the plain forward in float64), and on random inputs within
+    chip_smoke.MI_GRAD_TOL = 5e-5, the bars the kernel is held to on the
+    card; plain TF32 (hi.hi alone) misses the bar on the same inputs."""
+    if case == "near_top_bin_24x24":
+        rng, shape, bar = np.random.default_rng(23), (2, 1, 24, 24), 3e-6
+        I = (0.9 + 0.1 * rng.random(shape)).astype(np.float32)
+        J = np.clip(I + 0.01 * rng.standard_normal(shape), 0.9, 1.0).astype(np.float32)
+    else:
+        rng, shape, bar = np.random.default_rng(22), (2, 1, 64, 64), 5e-5
+        I = rng.random(shape).astype(np.float32)
+        J = np.clip(I + 0.1 * rng.standard_normal(shape), 0.0, 1.0).astype(np.float32)
+    f64 = _torch_value_and_grad(lambda a, b: kmi.mi_fwd_plain(a, b)[0],
+                                I.astype(np.float64), J.astype(np.float64))[1]
+    scale = max(float(np.abs(g).max()) for g in f64)
+
+    def err(three):
+        got = _mi_grads_emulated(torch.from_numpy(I), torch.from_numpy(J), three)
+        return max(float(np.abs(g.reshape(w.shape) - w).max()) for g, w in zip(got, f64)) / scale
+
+    err3, err1 = err(True), err(False)
+    assert err3 <= bar < err1, (err3, err1)
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c) on float32 values: a b + c exactly, rounded once to
+    float32, to nearest with ties to even."""
+    from fractions import Fraction
+
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    near = np.float32(float(x))
+    cands = (np.nextafter(near, np.float32(-np.inf)), near, np.nextafter(near, np.float32(np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x),
+                                     int(np.float32(v).view(np.uint32)) & 1))
+
+
+def test_mi_response_quotient_is_the_divide_to_the_bit():
+    """csrc/mi.cu's backward takes a response's quotient e / norm1d
+    without the IEEE divide (whose slow path, for the 0 and subnormal e
+    most bins give, and whose branch cost the kernel most of its time):
+    q0 = RN(e r) with r = RN(1 / norm1d), then q = fma(fma(-norm1d, q0, e),
+    r, q0). For e >= 2^-100 that is the divide's result to the bit
+    (Markstein's theorem), checked here over the Gaussians' range."""
+    norm1d = np.float32(math.sqrt(2.0 * math.pi) / 64)
+    r = np.float32(1.0) / norm1d
+    rng = np.random.default_rng(9)
+    e = np.concatenate([np.exp(-rng.uniform(0, 69.3, 1500)),
+                        2.0 ** -rng.uniform(0, 100, 1500), [1.0, 2.0**-100]]).astype(np.float32)
+    for x in e:
+        q0 = np.float32(x * r)
+        q = _fma32(_fma32(-norm1d, q0, x), r, q0)
+        assert q == x / norm1d, (x, q, x / norm1d)
+
+
 # ------------------------------------------------------------ multi-scale
 def _pair(rng, shape):
     I = rng.random(shape).astype(np.float32)
