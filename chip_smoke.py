@@ -695,9 +695,10 @@ def check_lncc(rng):
 def check_mi(rng):
     """The MI forward and backward kernels vs their plain versions on the
     card (the ragged bin counts 2 and 33 among the cases), the backward
-    near the top bin against float64, the backward's bits run to run and,
-    at the ragged pixel counts, from inputs that end where mapped memory
-    ends; returns their `kernels` entries (without the launch counts)."""
+    near the top bin (fed the forward kernel's statistics) against
+    float64, both kernels' bits run to run and, at the ragged pixel
+    counts, from inputs that end where mapped memory ends; returns their
+    `kernels` entries (without the launch counts)."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
@@ -724,6 +725,9 @@ def check_mi(rng):
             J = (I + 0.1 * torch.from_numpy(
                 rng.standard_normal(shape).astype(np.float32)).to(dev)).clamp(lo, hi).contiguous()
         loss, stats = kmi.mi_fwd_cuda(I, J, **kw)
+        again = kmi.mi_fwd_cuda(I, J, **kw)
+        if not (torch.equal(again[0], loss) and torch.equal(again[1], stats)):
+            raise AssertionError(f"mi_fwd {shape} {kw}: bits differ run to run")
         dI, dJ = kmi.mi_bwd_cuda(I, J, stats, one, **kw)
         again = kmi.mi_bwd_cuda(I, J, stats, one, **kw)
         if not (torch.equal(again[0], dI) and torch.equal(again[1], dJ)):
@@ -752,7 +756,7 @@ def check_mi(rng):
             f"{abs(float(ploss.double() - want)):.3g}, stats "
             f"{rel_err(pstats.double(), wstats):.3g}, dI/dJ "
             f"{max(rel_err(pI.double(), wI), rel_err(pJ.double(), wJ)):.3g}; "
-            f"loss {float(loss):.6f}; dI/dJ the same bits run to run"
+            f"loss {float(loss):.6f}; loss, stats and dI/dJ the same bits run to run"
             + (", and from guarded inputs" if shape in tails else ""))
         if not (e <= MI_LOSS_ATOL and es <= MI_STATS_TOL and eb <= MI_GRAD_TOL):
             raise AssertionError(f"mi {shape} {kw} {kind}: loss {e}, stats {es}, "
@@ -770,11 +774,18 @@ def check_mi(rng):
     pI, pJ = kmi.mi_bwd_plain(I, J, kmi.mi_fwd_plain(I, J)[1], one)
     I64 = I.double().requires_grad_()
     J64 = J.double().requires_grad_()
-    kmi.mi_fwd_plain(I64, J64)[0].backward()
+    loss64, stats64 = kmi.mi_fwd_plain(I64, J64)
+    loss64.backward()
     e64 = max(rel_err(dI.double(), I64.grad), rel_err(dJ.double(), J64.grad))
     p64 = max(rel_err(pI.double(), I64.grad), rel_err(pJ.double(), J64.grad))
+    # the backward kernel alone, fed float64's statistics rounded to f32:
+    # how much of e64 the forward's statistics bring
+    bI, bJ = kmi.mi_bwd_cuda(I, J, stats64.detach().float(), one)
+    b64 = max(rel_err(bI.double(), I64.grad), rel_err(bJ.double(), J64.grad))
     log(f"mi_bwd near the top bin {list(full)}: kernel vs float64 {e64:.3g}, plain "
-        f"f32 vs float64 {p64:.3g} of max |grad| (tol {MI_F64_TOL})")
+        f"f32 vs float64 {p64:.3g} of max |grad| (tol {MI_F64_TOL}); the forward "
+        f"kernel's statistics {rel_err(stats.double(), stats64.detach()):.3g} of max "
+        f"from float64's, the backward kernel fed float64's {b64:.3g}")
     if not e64 <= MI_F64_TOL:
         raise AssertionError(f"mi_bwd near the top bin: {e64} of max |grad| from f64")
 
@@ -788,8 +799,9 @@ def check_mi(rng):
 def time_mi(rng, shape, plain=True):
     """mi_fwd's and mi_bwd's device ms at `shape` (64 bins) on 20 sets of I
     and J = 0.9 I + 0.05, against their plain versions where `plain`,
-    logged beside their bounds (mi_bwd's with its products as 3xTF32 and
-    all on FFMA). Returns ({name: ms}, bytes, flops) for each."""
+    logged beside their bounds (with their products as 3xTF32 and all on
+    FFMA). Returns ({name: ms}, bytes, flops) for each, the flops in
+    `bound`'s list form."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
@@ -813,20 +825,23 @@ def time_mi(rng, shape, plain=True):
     n_stats = shape[0] * (2 * B + B * B)
     b_fwd = 8 * px + 4 * n_stats + 4  # I, J read; stats and the loss written
     b_bwd = 8 * px + 4 * n_stats + 4 + 8 * px  # I, J, stats, g read; dI, dJ written
-    # operations a pixel pair: the forward's responses (5 each, both
-    # images), joint Gram (2 B^2) and marginals; the backward's two
-    # B x B matrix-vector products (4 B^2; on the tensor cores as 3xTF32,
-    # so at 495 / 3 TFLOP/s), and beside them on the FP32 pipe its
-    # responses, each once (5 a bin, both images), and per-bin terms (6 a
-    # bin, both images)
-    f_fwd = (2 * B * B + 12 * B) * px
+    # operations a pixel pair, the products on the tensor cores as 3xTF32
+    # (so at 495 / 3 TFLOP/s) and beside them on the FP32 pipe the rest:
+    # the forward's joint Gram (2 B^2), and its responses (5 each, both
+    # images) and marginals; the backward's two B x B matrix-vector
+    # products (4 B^2), and its responses, each once (5 a bin, both
+    # images), and per-bin terms (6 a bin, both images)
+    f_fwd = [(2 * B * B * px, F32X3_FLOPS), (12 * B * px, F32_FLOPS)]
     f_bwd = [(4 * B * B * px, F32X3_FLOPS), (22 * B * px, F32_FLOPS)]
-    ffma = bound(b_bwd, sum(f for f, _ in f_bwd))[0]
-    log(f"mi timing {list(shape)}: mi_fwd {t_fwd} ms ({f_fwd / 1e9:.2f} GFLOP, bound "
-        f"{bound(b_fwd, f_fwd)[0]:.5f} ms); mi_bwd {t_bwd} ms "
-        f"({sum(f for f, _ in f_bwd) / 1e9:.2f} GFLOP), bound "
-        f"{bound(b_bwd, f_bwd)[0]:.5f} ms with the products as 3xTF32, {ffma:.5f} ms "
-        "all on FFMA; no one-call PyTorch equivalent")
+
+    def bounds(nbytes, flops):
+        return (f"{sum(f for f, _ in flops) / 1e9:.2f} GFLOP), bound "
+                f"{bound(nbytes, flops)[0]:.5f} ms with the products as 3xTF32 (the FP32 "
+                f"pipe's share {bound(nbytes, flops[1:])[0]:.5f}), "
+                f"{bound(nbytes, sum(f for f, _ in flops))[0]:.5f} ms all on FFMA")
+
+    log(f"mi timing {list(shape)}: mi_fwd {t_fwd} ms ({bounds(b_fwd, f_fwd)}; mi_bwd "
+        f"{t_bwd} ms ({bounds(b_bwd, f_bwd)}; no one-call PyTorch equivalent")
     return (ms_fwd, b_fwd, f_fwd), (ms_bwd, b_bwd, f_bwd)
 
 
@@ -1326,11 +1341,12 @@ def kernel_label(mangled):
 
 
 # by source, the kernels that must run on the tensor cores and the HMMA
-# each must show in its SASS: the f32 conv's and the MI backward's 3xTF32
-# run m16n8k8 TF32, the bf16 conv m16n8k16 bf16
+# each must show in its SASS: the f32 conv's and the MI forward's and
+# backward's 3xTF32 run m16n8k8 TF32, the bf16 conv m16n8k16 bf16
 HMMA = {"conv.cu": {"conv3x3_tf32_kernel": "HMMA.1688.F32.TF32",
                     "conv3x3_bf16_kernel": "HMMA.16816.F32.BF16"},
-        "mi.cu": {"mi_bwd_pixel_kernel": "HMMA.1688.F32.TF32"}}
+        "mi.cu": {"mi_fwd_gram_kernel": "HMMA.1688.F32.TF32",
+                  "mi_bwd_pixel_kernel": "HMMA.1688.F32.TF32"}}
 # sources whose every kernel of the stem is one HMMA names: no conv kernel
 # off the tensor cores
 TENSOR_CORES_ONLY = {"conv.cu": "conv3x3"}
@@ -1602,10 +1618,17 @@ def conv_phases():
     return 0
 
 
+# the MI entry points' launches, in order: the forward's four, the
+# backward's two
+MI_LAUNCHES = ("mi_fwd_gram_kernel", "mi_fwd_reduce_kernel", "mi_fwd_entropy_kernel",
+               "mi_mean_kernel", "mi_bwd_coef_kernel", "mi_bwd_pixel_kernel")
+
+
 def profile_mi(iters=10):
     """Device us a launch of each MI kernel (torch.profiler), over `iters`
     calls of the forward and the backward at [4,1,320,320]: how each entry
-    point's time splits over its launches."""
+    point's time splits over its launches. Fails if a launch of
+    MI_LAUNCHES is missing from the trace."""
     import re
 
     import torch
@@ -1631,6 +1654,9 @@ def profile_mi(iters=10):
         if e.device_type == torch.autograd.DeviceType.CUDA and name:
             out[name.group(1)] = e.device_time
     log(f"mi kernels, device us a launch over {iters} calls [4,1,320,320]: {out}")
+    missing = [k for k in MI_LAUNCHES if k not in out]
+    if missing:
+        raise AssertionError(f"mi launches missing from the trace: {missing}")
     return out
 
 

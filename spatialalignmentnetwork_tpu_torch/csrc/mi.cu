@@ -6,78 +6,100 @@
 // `_mi_kernel` (pallas_call at :106) and the backward `_backward` /
 // `_mi_bwd_kernel` (pallas_call at :246). The TPU kernels walk one
 // sample's pixels in sequence (padded with 1e6 to a multiple of 2048);
-// here each sample's M pixels are split over many blocks of 2048 (50
-// blocks a sample at 320 x 320), masked past M, and a second launch
-// reduces the blocks' partials in a fixed order (no float atomics).
+// here each sample's M pixels are cut into tiles of 64, masked past M, and
+// a grid that fills the card once takes them in turn, each block looping
+// over its tiles.
 //
 // MI as the reference's loss (miloss.py:26-57): per sample, Gaussian
 // responses p_b(v) = exp(-(v - c_b)^2 / (2 sigma^2)) / (sqrt(2 pi) sigma)
 // at bins <= 64 centres c_b = b ((max - min) / (bins - 1)) + min (the
 // Pallas kernel's form); marginal sums s_b = sum_px p_b and the joint
 // Gram G_ab = sum_px p_a(I) p_b(J); loss = mean over the batch of
-// -(H_I + H_J - H_IJ). f32 throughout: the Gram is f32 FFMA (the JAX
-// kernel pins Precision.HIGHEST), expf and logf without fast math.
+// -(H_I + H_J - H_IJ). f32 throughout, expf and logf without fast math;
+// the products (the JAX kernel pins Precision.HIGHEST) on the tensor
+// cores as 3xTF32: each operand split into hi = tf32(v) and lo = tf32(v -
+// hi), rounded to nearest with ties away from zero as cvt.rna.tf32.f32
+// rounds, and each product taken as lo.hi + hi.lo + hi.hi, in that order,
+// on mma.sync.m16n8k8. Emulated (tests/test_torch_port_losses.py), TF32
+// alone misses the statistics' bar by 1.5-3.5x and, fed those statistics,
+// the backward's near the top bin by 6.5x; 3xTF32 meets both.
 //
-// mi_fwd: a block stages 64 pixels at a time, writes their [64 px, 64
-// bins] responses to shared memory (zero for bins past `bins` and pixels
-// past M), and each of its 256 threads accumulates a 4 x 4 tile of the
-// 64 x 64 Gram in registers; 128 threads also accumulate the marginals.
-// Each sum is taken over 64 pixels, then added to the block's total.
-// Launch 2 (one block a sample) sums the partials in order, writes the
-// statistics [2 bins + bins^2] (kept by the autograd Function for the
-// backward, so it does not recompute them as the Pallas backward does)
-// and runs the entropy epilogue (:232-244); launch 3 takes the batch mean.
+// mi_fwd: launch 1 (blocks a sample from kernels/mi.py's fwd_blocks: two
+// blocks an SM, split over the samples, at most one a tile) loops over
+// tiles of 64 pixels. A tile's responses p_I and p_J are computed once
+// each (128 expf a pixel pair at 64 bins), masked by a product past
+// `bins` and past M, into [bin][pixel] rows of 68 words; a thread takes
+// two bins of 8 pixels of both images and keeps their marginal sums in
+// registers (8 pixels, then the block's running sum, then the 8 lanes of
+// a bin pair: the f32 responses, not hi + lo). The joint Gram G = P_I
+// P_J^T (M = 64 bins of I, N = 64 bins of J, K = 64 pixels) is 32 tiles of
+// 16 x 8, 4 a warp: A = P_I and B = P_J (stored n-major, as `.col` takes
+// it) both by ldmatrix.x4 on the rows (lane 4g + t gets word t of row g),
+// split into hi and lo as they load; the three products of a K step each
+// over the warp's 4 tiles before the next, into a fresh f32 sum a tile of
+// 64 pixels, added by a round-to-nearest FADD to the block's sum (the
+// mma's own sums do not round to nearest). Each block writes one partial
+// [2 x 64 marginals, 64 x 64 Gram]. Launch 2 sums each entry of the
+// statistics over the partials in block order, an entry a thread across
+// 17 blocks a sample, and writes the statistics [2 bins + bins^2] (kept by
+// the autograd Function for the backward, so it does not recompute them
+// as the Pallas backward does); launch 3 (one block a sample) runs the
+// entropy epilogue (:232-244); launch 4 takes the batch mean in order. No
+// float atomics anywhere: the bits repeat run to run.
 //
 // mi_bwd: launch 1 (one block of 1024 threads a sample) computes from
 // the saved statistics the entropy weights -w/m [bins] of each marginal
 // and the joint coefficients EQ [bins, bins] (:333-349), each coefficient
-// once, and writes EQ and EQ^T already split for 3xTF32 (hi = tf32(v), lo
-// = tf32(v - hi), rounded to nearest with ties away from zero as
-// cvt.rna.tf32.f32 rounds), row by row. Launch 2 takes dL/dp_I = -w_I/m +
-// (EQ p_J)/norm2d and dL/dp_J = -w_J/m + (EQ^T p_I)/norm2d, then dv =
-// sum_b dL/dp_b p_b (c_b - v) / sigma^2, subtracting before the sum over
-// bins (:357-384): sum_b A_b c_b - v sum_b A_b would cancel, amplified by
-// 1/sigma^2 = 4096. A block copies the sample's 64 KB of split
-// coefficients into shared memory once (cp.async), then loops over tiles
-// of 64 pixels, two blocks an SM. A tile's responses p_I and p_J are
-// computed once each (128 expf a pixel pair at 64 bins) into [pixel][bin]
+// once, and writes EQ and EQ^T already split for 3xTF32, row by row.
+// Launch 2 takes dL/dp_I = -w_I/m + (EQ p_J)/norm2d and dL/dp_J = -w_J/m +
+// (EQ^T p_I)/norm2d, then dv = sum_b dL/dp_b p_b (c_b - v) / sigma^2,
+// subtracting before the sum over bins (:357-384): sum_b A_b c_b - v
+// sum_b A_b would cancel, amplified by 1/sigma^2 = 4096. A block copies
+// the sample's 64 KB of split coefficients into shared memory once
+// (cp.async), then loops over tiles of 64 pixels, two blocks an SM. A
+// tile's responses p_I and p_J are computed once each into [pixel][bin]
 // rows. The two products D_I = EQ P_J and D_J = EQ^T P_I (M = 64 bins, K
-// = 64 bins, N = pixels) run on mma.sync.m16n8k8 as 3xTF32: each product
-// lo.hi + hi.lo + hi.hi, in that order, into one f32 sum (24 mma a 16 x 8
-// tile over K = 64; 3xTF32 lands within MI_F64_TOL of float64 near the top
-// bin, where TF32 alone misses it by about 100x:
-// tests/test_torch_port_losses.py). A fragments by ldmatrix.x4 on the
-// split EQ rows (lane 4g + t gets word t of row g), B fragments by
-// ldmatrix.x4 on the response rows (the same mapping gives B (k = t, n =
-// g)), split into hi and lo as they load: a warp uses each B word once,
-// across its 4 m-tiles and 3 products. Rows are 68 words, so the 8 rows of
-// an ldmatrix fall in 8 bank groups. The epilogue stays in registers: a
-// thread forms the terms of its 8 bins (C rows g, g + 8 of each m-tile)
-// for 2 pixels of each n-tile, from the f32 responses (not hi + lo), sums
-// them in a fixed order, and a butterfly over the 8 g-lanes finishes the
-// sum over bins; no atomics, no sum split over blocks, so the bits repeat
-// run to run.
+// = 64 bins, N = pixels) run on mma.sync.m16n8k8 as 3xTF32 into one f32
+// sum (24 mma a 16 x 8 tile over K = 64). A fragments by ldmatrix.x4 on
+// the split EQ rows, B fragments by ldmatrix.x4 on the response rows (the
+// same mapping gives B (k = t, n = g)), split into hi and lo as they load:
+// a warp uses each B word once, across its 4 m-tiles and 3 products. Rows
+// are 68 words, so the 8 rows of an ldmatrix fall in 8 bank groups. The
+// epilogue stays in registers: a thread forms the terms of its 8 bins (C
+// rows g, g + 8 of each m-tile) for 2 pixels of each n-tile, from the f32
+// responses (not hi + lo), sums them in a fixed order, and a butterfly
+// over the 8 g-lanes finishes the sum over bins; no atomics, no sum split
+// over blocks, so the bits repeat run to run.
 //
-// What set its time on an NVIDIA H100 (variants timed with `mi_phases()`,
-// phases read with clock64): not the mma but the responses. The IEEE
+// What set their time on an NVIDIA H100 80GB HBM3 at 700 W (variants
+// timed with `mi_phases()`): not the mma but the responses. The IEEE
 // divide of each response by norm1d took its slow path for the 0 and
 // subnormal Gaussians that most of a pixel's bins give, and its branch,
 // like a select around the response and the unrolled loop's exit tests,
 // kept the compiler from interleaving responses; the divide is now a
-// product and an fma correction, the same bits. The mma issue each of
-// the three products over all 8 tiles of a warp before the next, as three
-// in a row on one tile wait on each other.
+// product and an fma correction, the same bits. The forward's time
+// before this design was one block's serial walk over 2048 pixels, with
+// 16 blocks in all at 80 x 80; its grid now fills the card at every
+// plane, and its epilogue holds a thread's joint entries in registers
+// (its loads issued together) over 1024 threads. Splitting the forward's
+// responses into hi and lo rows as they are written, in place of as the
+// fragments load, doubles the shared memory and the ldmatrix and gained
+// nothing, so the split's issue is not what holds the Gram launch at 5x
+// its bound; a fresh sum each K step of 8 pixels cost 10% and took the
+// statistics further from float64.
 //
-// Bound on the H100 SXM. At the path's shape (I and J [4, 1, 320, 320],
-// 409,600 pixel pairs, 64 bins) the forward's Gram alone is 2 * 64 * 64
-// flops a pixel, 3.36 GFLOP: about 50 us at 67 TFLOP/s f32 (reading 3.3
-// MB takes under 1 us); moving it to the tensor cores is later work. The
-// backward's two 64 x 64 matrix-vector products a pixel are 6.7 GFLOP:
-// 41 us as 3xTF32 (three TF32 products at 495 TFLOP/s). The responses,
-// each computed once (5 flops a bin, both images), and the per-bin terms
-// (6 a bin, both images), 22 flops a bin a pixel pair, take 9 us at 67
-// TFLOP/s on the FP32 pipe, which issues beside the tensor cores: bound
-// 41 us, and 109 us with all of it on FFMA.
+// Bound on the H100 SXM, at the path's shape (I and J [4, 1, 320, 320],
+// 409,600 pixel pairs, 64 bins), the larger of the tensor cores' and the
+// FP32 pipe's times (the two issue side by side; reading 3.3 MB takes
+// under 1 us). The forward's Gram is 2 * 64 * 64 flops a pixel pair, 3.36
+// GFLOP: 20 us as 3xTF32 (three TF32 products at 495 TFLOP/s); its
+// responses and marginals (12 flops a bin a pixel pair) take 5 us at 67
+// TFLOP/s on the FP32 pipe: bound 20 us, and 55 us with all of it on FFMA.
+// The backward's two 64 x 64 matrix-vector products a pixel are 6.7
+// GFLOP: 41 us as 3xTF32. Its responses, each computed once (5 flops a
+// bin, both images), and the per-bin terms (6 a bin, both images), 22
+// flops a bin a pixel pair, take 9 us: bound 41 us, and 109 us with all
+// of it on FFMA.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,10 +110,13 @@ namespace {
 
 constexpr int kBins = 64;        // padded bin count
 constexpr int kStats = 2 * kBins + kBins * kBins;  // s_i, s_j, joint
-constexpr int kChunk = 2048;     // pixels a forward block
-constexpr int kSub = 64;         // pixels staged at a time
-constexpr int kFwdThreads = 256;  // 16 x 16 threads, 4 x 4 Gram entries each
-constexpr int kEpiThreads = 256;
+constexpr int kFwdThreads = 256;  // 8 warps: 4 Gram tiles of 16 x 8 each
+constexpr int kFwdTile = 64;     // pixels a forward tile
+// forward blocks an SM: kernels/mi.py's FWD_BLOCKS_PER_SM, which sizes
+// the grid and the partials' scratch
+constexpr int kFwdBlocks = 2;
+constexpr int kRedThreads = 256;  // an entry of the statistics a thread
+constexpr int kEpiThreads = 1024;  // 4 joint entries a thread
 constexpr int kCoefThreads = 1024;  // 4 coefficients a thread
 constexpr int kBwdThreads = 256;  // 8 warps: 4 for dI, 4 for dJ
 constexpr int kBwdTile = 64;     // pixels a backward tile
@@ -112,11 +137,6 @@ __device__ __forceinline__ float center(int b, const Parzen& p) {
   return __fadd_rn(__fmul_rn((float)b, p.step), p.minv);
 }
 
-__device__ __forceinline__ float response(float v, float c, const Parzen& p) {
-  const float d = v - c;
-  return expf(-(d * d) * p.inv_two_sigma2) / p.norm1d;
-}
-
 // x / d (x >= 0) as C++ divides it, to the bit, without the IEEE divide's
 // slow path (tens of instructions, a warp's lanes in turn), which it takes
 // for a dividend of 0: 1 is divided in its place. As asm, since the
@@ -127,13 +147,14 @@ __device__ __forceinline__ float div_nonneg(float x, float d) {
   return x == 0.0f ? 0.0f : q;
 }
 
-// response() with its quotient taken without a divide: q0 = e r, r =
-// RN(1 / norm1d), and one fma correction give RN(e / norm1d), response()'s
-// quotient to the bit (Markstein's theorem), for e of 2^-100 or more; a
-// smaller e, where the correction's remainder could underflow, keeps q0,
-// within one of its ulps. The IEEE divide ends in a branch to its slow
-// path (taken for the 0 and subnormal e that most of a pixel's 64 bins
-// give), and the branch keeps the compiler from interleaving responses.
+// The Gaussian response exp(-(v - c)^2 / (2 sigma^2)) / norm1d, its
+// quotient taken without a divide: q0 = e r, r = RN(1 / norm1d), and one
+// fma correction give RN(e / norm1d), the IEEE divide's quotient to the
+// bit (Markstein's theorem), for e of 2^-100 or more; a smaller e, where
+// the correction's remainder could underflow, keeps q0, within one of its
+// ulps. The IEEE divide ends in a branch to its slow path (taken for the
+// 0 and subnormal e that most of a pixel's 64 bins give), and the branch
+// keeps the compiler from interleaving responses.
 __device__ __forceinline__ float response_fma(float v, float c, const Parzen& p,
                                               float inv_norm1d) {
   const float d = v - c;
@@ -161,149 +182,6 @@ __device__ float block_sum_all(float v, float* scratch) {
   const float t = scratch[kThreads / 32];
   __syncthreads();  // scratch is free again
   return t;
-}
-
-// grid (chunks, N); partial[(n * chunks + chunk) * kStats + e]: the
-// chunk's marginal sums (e < 2 kBins) and joint Gram (row-major after).
-__global__ void __launch_bounds__(kFwdThreads)
-    mi_fwd_partial_kernel(const float* __restrict__ I,
-                          const float* __restrict__ J,
-                          float* __restrict__ partial, int64_t m, Parzen p) {
-  __shared__ __align__(16) float pi[kSub][kBins];
-  __shared__ __align__(16) float pj[kSub][kBins];
-  __shared__ float vi[kSub];
-  __shared__ float vj[kSub];
-  __shared__ float cs[kBins];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int64_t n = blockIdx.y;
-  const int64_t start = (int64_t)blockIdx.x * kChunk;
-  const float* In = I + n * m;
-  const float* Jn = J + n * m;
-  if (tid < kBins) cs[tid] = center(tid, p);
-  float g[4][4] = {};
-  float marg = 0.0f;
-  for (int s0 = 0; s0 < kChunk && start + s0 < m; s0 += kSub) {
-    if (tid < kSub) {
-      const int64_t px = start + s0 + tid;
-      vi[tid] = px < m ? In[px] : 0.0f;
-    } else if (tid < 2 * kSub) {
-      const int64_t px = start + s0 + tid - kSub;
-      vj[tid - kSub] = px < m ? Jn[px] : 0.0f;
-    }
-    __syncthreads();
-    for (int e = tid; e < kSub * kBins; e += kFwdThreads) {
-      const int k = e / kBins;
-      const int b = e - k * kBins;
-      const bool valid = start + s0 + k < m && b < p.bins;
-      pi[k][b] = valid ? response(vi[k], cs[b], p) : 0.0f;
-      pj[k][b] = valid ? response(vj[k], cs[b], p) : 0.0f;
-    }
-    __syncthreads();
-    // two-level sums (64 pixels, then the chunk's running total): one
-    // chain of 2048 near-equal terms (a zero background) would lose
-    // ~1e-4 of the sum
-    float gs[4][4] = {};
-#pragma unroll 8
-    for (int k = 0; k < kSub; ++k) {
-      const float4 a4 = reinterpret_cast<const float4*>(pi[k])[ty];
-      const float4 b4 = reinterpret_cast<const float4*>(pj[k])[tx];
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) gs[r][c] += a[r] * b[c];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) g[r][c] += gs[r][c];
-    float ms = 0.0f;
-    if (tid < kBins) {
-      for (int k = 0; k < kSub; ++k) ms += pi[k][tid];
-    } else if (tid < 2 * kBins) {
-      for (int k = 0; k < kSub; ++k) ms += pj[k][tid - kBins];
-    }
-    marg += ms;
-    __syncthreads();  // pi, pj, vi, vj are staged again
-  }
-  float* out = partial + (n * gridDim.x + blockIdx.x) * (int64_t)kStats;
-  if (tid < 2 * kBins) out[tid] = marg;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out[2 * kBins + (ty * 4 + r) * kBins + tx * 4 + c] = g[r][c];
-}
-
-// -sum_b pn_b log(pn_b + 1e-10), pn = (s / m) / (sum(s / m) + 1e-10).
-__device__ float marginal_entropy(const float* s, int bins, float m,
-                                  float* scratch) {
-  const int tid = threadIdx.x;
-  const float u = tid < bins ? s[tid] / m : 0.0f;
-  const float T = block_sum_all<kEpiThreads>(u, scratch) + 1e-10f;
-  const float pn = u / T;
-  return -block_sum_all<kEpiThreads>(tid < bins ? pn * logf(pn + 1e-10f) : 0.0f,
-                                     scratch);
-}
-
-// grid N: the sample's statistics (partials summed in chunk order), packed
-// as [s_i (bins), s_j (bins), joint (bins x bins)], and per[n] = -MI.
-__global__ void __launch_bounds__(kEpiThreads)
-    mi_fwd_epilogue_kernel(const float* __restrict__ partial, int chunks,
-                           float* __restrict__ stats, float* __restrict__ per,
-                           float m, int bins, float norm2d) {
-  __shared__ float tot[kStats];
-  __shared__ float scratch[kEpiThreads / 32 + 1];
-  const int tid = threadIdx.x;
-  const int64_t n = blockIdx.x;
-  const float* src = partial + n * chunks * (int64_t)kStats;
-  for (int e = tid; e < kStats; e += kEpiThreads) {
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < chunks; ++c) acc += src[(int64_t)c * kStats + e];
-    tot[e] = acc;
-  }
-  __syncthreads();
-  const int n_stats = 2 * bins + bins * bins;
-  float* st = stats + n * n_stats;
-  for (int e = tid; e < n_stats; e += kEpiThreads) {
-    int from;
-    if (e < bins) {
-      from = e;
-    } else if (e < 2 * bins) {
-      from = kBins + e - bins;
-    } else {
-      const int a = (e - 2 * bins) / bins;
-      from = 2 * kBins + a * kBins + (e - 2 * bins - a * bins);
-    }
-    st[e] = tot[from];
-  }
-  const float ent_i = marginal_entropy(tot, bins, m, scratch);
-  const float ent_j = marginal_entropy(tot + kBins, bins, m, scratch);
-  const float* joint = tot + 2 * kBins;
-  float gsum = 0.0f;
-  for (int e = tid; e < bins * bins; e += kEpiThreads)
-    gsum += joint[(e / bins) * kBins + e % bins] / norm2d;
-  const float S = block_sum_all<kEpiThreads>(gsum, scratch) + 1e-10f;
-  float h = 0.0f;
-  for (int e = tid; e < bins * bins; e += kEpiThreads) {
-    const float q = (joint[(e / bins) * kBins + e % bins] / norm2d) / S;
-    h += q * logf(q + 1e-10f);
-  }
-  const float ent_joint = -block_sum_all<kEpiThreads>(h, scratch);
-  if (tid == 0) per[n] = -(ent_i + ent_j - ent_joint);
-}
-
-// One thread: loss = the mean of per[0..n), summed in order.
-__global__ void mi_mean_kernel(const float* __restrict__ per, int64_t n,
-                               float* __restrict__ loss) {
-  if (threadIdx.x != 0) return;
-  float t = 0.0f;
-  for (int64_t k = 0; k < n; ++k) t += per[k];
-  *loss = t / (float)n;
 }
 
 // d(ent)/d(s_b) = w_b / m for the marginal pn = (s / m) / T (:333-339);
@@ -366,6 +244,238 @@ __device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi, uint32_t& l
   hi = tf32_rna(v);
   lo = tf32_rna(__float_as_uint(__fsub_rn(__uint_as_float(v), __uint_as_float(hi))));
 }
+
+// ------------------------------------------------------------- forward
+
+// grid (blocks, N): block x of sample n takes the pixel tiles x, x +
+// blocks, ... of kFwdTile pixels each and writes one partial,
+// partial[(n * blocks + x) * kStats + e]: its marginal sums (e < 2 kBins)
+// and joint Gram (row-major after). A tile's responses p_I and p_J are
+// computed once each (128 expf a pixel pair at 64 bins) into [bin][pixel]
+// rows; the Gram G = P_I P_J^T (M = 64 bins of I, N = 64 bins of J, K =
+// 64 pixels) runs on mma.sync.m16n8k8 as 3xTF32, each warp 4 of its 32
+// tiles of 16 x 8.
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocks)
+    mi_fwd_gram_kernel(const float* __restrict__ I, const float* __restrict__ J,
+                       float* __restrict__ partial, int64_t m, Parzen p) {
+  static_assert(kFwdThreads == 256 && kFwdTile == 64 && kBins == 64,
+                "the response and Gram maps below: 8 warps of 8 bins, 4 tiles");
+  __shared__ __align__(16) float ps[2][kBins][kRow];  // p_I, p_J: [bin][pixel]
+  __shared__ float vs[2][kFwdTile];                   // v_I, v_J
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t n = blockIdx.y;
+  const int64_t tiles = (m + kFwdTile - 1) / kFwdTile;
+  // thread tid < 2 kFwdTile loads pixel tid % kFwdTile of image tid / kFwdTile
+  const float* src = (tid < kFwdTile ? I : J) + n * m;
+  auto value = [&](int64_t tile) {
+    const int64_t px = tile * kFwdTile + tid % kFwdTile;
+    return tid < 2 * kFwdTile && tile < tiles && px < m ? src[px] : 0.0f;
+  };
+  float v_next = value(blockIdx.x);
+
+  // a thread's responses: bins b0 and b0 + 1 of pixels k0 + 8 s, both
+  // images; a warp's 32 stores of one (image, bin, s) fall in 32 banks.
+  // Their marginal sums are kept in registers: 8 pixels a tile, then the
+  // block's running sum, then the 8 lanes of a bin pair
+  const int b0 = 8 * warp + 2 * (lane >> 3);
+  const int k0 = lane & 7;
+  const float c_resp[2] = {center(b0, p), center(b0 + 1, p)};
+  const float bin_ok[2] = {b0 < p.bins ? 1.0f : 0.0f, b0 + 1 < p.bins ? 1.0f : 0.0f};
+  const float inv_norm1d = 1.0f / p.norm1d;
+  float marg[2][2] = {};
+
+  // the warp's Gram tiles: rows 16 mt + (0..15) (bins of I), columns 8 (nt0
+  // + j) + (0..7) (bins of J). ldmatrix rows: A, bins 16 mt + (lane & 15)
+  // of p_I at k (lane >> 4) 4; B (two n-tiles), bins 8 (nt0 + j + (lane >>
+  // 4)) + (lane & 7) of p_J at k ((lane >> 3) & 1) 4: lane 4 g + t gets A
+  // (g, t) and B (k = t, n = g), the fragments of mma_tf32
+  const int mt = warp >> 1;
+  const int nt0 = 4 * (warp & 1);
+  const uint32_t a_base =
+      smem_addr(&ps[0][0][0]) + ((16 * mt + (lane & 15)) * kRow + (lane >> 4) * 4) * 4;
+  const uint32_t b_base = smem_addr(&ps[1][0][0]) +
+      ((8 * (nt0 + (lane >> 4)) + (lane & 7)) * kRow + ((lane >> 3) & 1) * 4) * 4;
+  float run[4][4] = {};  // the block's Gram tiles
+
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    __syncthreads();  // the last tile's readers are done
+    if (tid < 2 * kFwdTile) vs[tid / kFwdTile][tid % kFwdTile] = v_next;
+    __syncthreads();
+    v_next = value(tile + gridDim.x);  // in flight through this tile
+    // each response once, zero past `bins` and past m. No branch between
+    // the unrolled responses, so that the compiler interleaves them: the
+    // mask is a product and the trip count a constant
+    const int64_t px0 = tile * kFwdTile;
+    const int left = (int)(m - px0 < kFwdTile ? m - px0 : kFwdTile);
+#pragma unroll
+    for (int img = 0; img < 2; ++img) {
+      float ts[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int s = 0; s < kFwdTile / 8; ++s) {
+        const int k = k0 + 8 * s;
+        const float v = vs[img][k];
+        const float px_ok = k < left ? 1.0f : 0.0f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float r = response_fma(v, c_resp[c], p, inv_norm1d) * (bin_ok[c] * px_ok);
+          ps[img][b0 + c][k] = r;
+          ts[c] += r;
+        }
+      }
+      marg[img][0] += ts[0];
+      marg[img][1] += ts[1];
+    }
+    __syncthreads();
+
+    // the tile's Gram: K = 64 pixels in 8 steps, each product as lo.hi +
+    // hi.lo + hi.hi into a fresh f32 sum, each of the three over the
+    // warp's 4 tiles before the next (three in a row on one tile wait on
+    // each other); fragments split into hi and lo as they load
+    float acc[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kFwdTile / 8; ++kk) {
+      uint32_t r[4], ah[4], al[4], bh[4][2], bl[4][2];
+      ldsm_x4(r, a_base + kk * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(r[i], ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        ldsm_x4(r, b_base + (uint32_t)(8 * j * kRow + 8 * kk) * 4);
+        split_tf32(r[0], bh[j][0], bl[j][0]);
+        split_tf32(r[1], bh[j][1], bl[j][1]);
+        split_tf32(r[2], bh[j + 1][0], bl[j + 1][0]);
+        split_tf32(r[3], bh[j + 1][1], bl[j + 1][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+    }
+    // a round-to-nearest add into the block's sum (the mma's own sums do
+    // not round to nearest)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) run[j][i] = __fadd_rn(run[j][i], acc[j][i]);
+  }
+
+  float* out = partial + (n * gridDim.x + blockIdx.x) * (int64_t)kStats;
+  // the marginals: a butterfly over the 8 lanes k0 of each bin pair
+#pragma unroll
+  for (int img = 0; img < 2; ++img) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = marg[img][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      if (k0 == 0) out[img * kBins + b0 + c] = v;
+    }
+  }
+  // the Gram: lane 4 g + t holds C (g, 2 t), (g, 2 t + 1), (g + 8, 2 t),
+  // (g + 8, 2 t + 1) of each tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float* gram = out + 2 * kBins;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int a = 16 * mt + g;
+    const int b = 8 * (nt0 + j) + 2 * t;
+    *reinterpret_cast<float2*>(gram + a * kBins + b) = make_float2(run[j][0], run[j][1]);
+    *reinterpret_cast<float2*>(gram + (a + 8) * kBins + b) = make_float2(run[j][2], run[j][3]);
+  }
+}
+
+// grid (ceil(kStats / kRedThreads), N): entry e of sample n summed over
+// its `blocks` partials in block order (no float atomics, so the bits
+// repeat run to run), written where it goes in the statistics, packed as
+// [s_i (bins), s_j (bins), joint (bins x bins)]; entries past `bins` are
+// not read.
+__global__ void __launch_bounds__(kRedThreads)
+    mi_fwd_reduce_kernel(const float* __restrict__ partial, int blocks,
+                         float* __restrict__ stats, int bins) {
+  const int e = blockIdx.x * kRedThreads + threadIdx.x;
+  if (e >= kStats) return;
+  int to;  // e's place in the packed statistics
+  if (e < 2 * kBins) {
+    const int b = e % kBins;
+    to = b < bins ? (e / kBins) * bins + b : -1;
+  } else {
+    const int a = (e - 2 * kBins) / kBins;
+    const int b = (e - 2 * kBins) % kBins;
+    to = a < bins && b < bins ? 2 * bins + a * bins + b : -1;
+  }
+  if (to < 0) return;
+  const int64_t n = blockIdx.y;
+  const float* src = partial + n * blocks * (int64_t)kStats + e;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int c = 0; c < blocks; ++c) acc += src[(int64_t)c * kStats];
+  stats[n * (2 * bins + bins * bins) + to] = acc;
+}
+
+// -sum_b pn_b log(pn_b + 1e-10), pn = (s / m) / (sum(s / m) + 1e-10).
+__device__ float marginal_entropy(const float* s, int bins, float m,
+                                  float* scratch) {
+  const int tid = threadIdx.x;
+  const float u = tid < bins ? s[tid] / m : 0.0f;
+  const float T = block_sum_all<kEpiThreads>(u, scratch) + 1e-10f;
+  const float pn = u / T;
+  return -block_sum_all<kEpiThreads>(tid < bins ? pn * logf(pn + 1e-10f) : 0.0f,
+                                     scratch);
+}
+
+// grid N: per[n] = -MI of sample n from its statistics (the entropy
+// epilogue of ops/pallas/mi.py:232-244). A thread's joint entries, tid +
+// kEpiThreads i, are loaded together and kept in registers.
+__global__ void __launch_bounds__(kEpiThreads)
+    mi_fwd_entropy_kernel(const float* __restrict__ stats, float* __restrict__ per,
+                          float m, int bins, float norm2d) {
+  constexpr int kPer = kBins * kBins / kEpiThreads;
+  __shared__ float scratch[kEpiThreads / 32 + 1];
+  const int tid = threadIdx.x;
+  const int64_t n = blockIdx.x;
+  const float* st = stats + n * (2 * bins + bins * bins);
+  const float* joint = st + 2 * bins;
+  float q[kPer];  // the joint over norm2d, then over its sum; 0 past bins^2
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = tid + kEpiThreads * i;
+    q[i] = e < bins * bins ? joint[e] : 0.0f;
+  }
+  const float ent_i = marginal_entropy(st, bins, m, scratch);
+  const float ent_j = marginal_entropy(st + bins, bins, m, scratch);
+  float gsum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    q[i] = div_nonneg(q[i], norm2d);
+    gsum += q[i];
+  }
+  const float S = block_sum_all<kEpiThreads>(gsum, scratch) + 1e-10f;
+  float h = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const float qs = div_nonneg(q[i], S);
+    h += qs * logf(qs + 1e-10f);  // 0 for the entries past bins^2
+  }
+  const float ent_joint = -block_sum_all<kEpiThreads>(h, scratch);
+  if (tid == 0) per[n] = -(ent_i + ent_j - ent_joint);
+}
+
+// One thread: loss = the mean of per[0..n), summed in order.
+__global__ void mi_mean_kernel(const float* __restrict__ per, int64_t n,
+                               float* __restrict__ loss) {
+  if (threadIdx.x != 0) return;
+  float t = 0.0f;
+  for (int64_t k = 0; k < n; ++k) t += per[k];
+  *loss = t / (float)n;
+}
+
+// ------------------------------------------------------------ backward
 
 // grid N: coef[n] = [-w_I / m (kBins), -w_J / m (kBins), EQ hi, EQ lo,
 // EQ^T hi, EQ^T lo (kBins x kBins each, row-major)], zero past `bins`,
@@ -602,27 +712,32 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocks)
 // (bins - 1), inv_two_sigma2 = 1 / (2 sigma^2), norm1d = sqrt(2 pi)
 // sigma, norm2d = 2 pi sigma^2, inv_sigma2 = 1 / sigma^2. Each launches
 // on `stream` and returns cudaGetLastError() (0 on success;
-// cudaErrorInvalidValue for a bin count it does not take); none
+// cudaErrorInvalidValue for a bin or block count it does not take); none
 // synchronises or allocates. The forward takes all but inv_sigma2.
 
-// partial: [n * ceil(m / 2048) * 4224] scratch; stats: [n, 2 bins +
-// bins^2]; per: [n] scratch; loss: one f32, the batch mean of -MI.
+// blocks (>= 1): the forward's blocks a sample, which kernels/mi.py's
+// fwd_blocks sizes to fill the card; partial: [n * blocks * 4224] scratch;
+// stats: [n, 2 bins + bins^2]; per: [n] scratch; loss: one f32, the batch
+// mean of -MI.
 extern "C" int san_mi_fwd(const void* I, const void* J, void* partial,
                           void* stats, void* per, void* loss, int64_t n,
-                          int64_t m, int bins, float minv, float step,
-                          float inv_two_sigma2, float norm1d, float norm2d,
-                          void* stream) {
-  if (bins < 2 || bins > kBins) return (int)cudaErrorInvalidValue;
+                          int64_t m, int bins, int blocks, float minv,
+                          float step, float inv_two_sigma2, float norm1d,
+                          float norm2d, void* stream) {
+  if (bins < 2 || bins > kBins || blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Parzen p{bins, minv, step, inv_two_sigma2, norm1d};
-  const int chunks = (int)((m + kChunk - 1) / kChunk);
-  mi_fwd_partial_kernel<<<dim3(chunks, (unsigned)n), kFwdThreads, 0, s>>>(
+  mi_fwd_gram_kernel<<<dim3((unsigned)blocks, (unsigned)n), kFwdThreads, 0, s>>>(
       (const float*)I, (const float*)J, (float*)partial, m, p);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  mi_fwd_epilogue_kernel<<<(unsigned)n, kEpiThreads, 0, s>>>(
-      (const float*)partial, chunks, (float*)stats, (float*)per, (float)m,
-      bins, norm2d);
+  mi_fwd_reduce_kernel<<<dim3((kStats + kRedThreads - 1) / kRedThreads, (unsigned)n),
+                         kRedThreads, 0, s>>>((const float*)partial, blocks,
+                                              (float*)stats, bins);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  mi_fwd_entropy_kernel<<<(unsigned)n, kEpiThreads, 0, s>>>(
+      (const float*)stats, (float*)per, (float)m, bins, norm2d);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   mi_mean_kernel<<<1, 32, 0, s>>>((const float*)per, n, (float*)loss);

@@ -5,8 +5,11 @@ Function that joins them.
 Replaces the Pallas TPU kernels of the JAX package's `ops/pallas/mi.py`:
 `_forward` / `_mi_kernel` (pallas_call at :106) and `_backward` /
 `_mi_bwd_kernel` (pallas_call at :246), with their custom VJP (:429-446).
-Bound on the H100 by operations (the backward's two products on the
-tensor cores as 3xTF32): see the note at the top of the CUDA source.
+Both are bound on the H100 by operations, their products (the forward's
+joint Gram, the backward's two matrix-vector products a pixel) on the
+tensor cores as 3xTF32: see the note at the top of the CUDA source. The
+forward's grid fills the card at any plane (`fwd_blocks`); its partials
+are summed in block order, so its bits repeat run to run.
 
 `MILoss.apply(I, J, bins, sigma, minv, maxv)` takes real f32 [N, ...]
 tensors of one shape (each sample's M = numel / N pixels form one
@@ -31,7 +34,11 @@ FWD = "mi_fwd"
 BWD = "mi_bwd"
 SOURCE = "mi.cu"
 MAX_BINS = 64  # the CUDA kernels' padded bin count
-CHUNK = 2048  # pixels a block in the CUDA forward
+# The CUDA forward's grid: each block loops over tiles of FWD_TILE pixels
+# and writes one partial; FWD_BLOCKS_PER_SM blocks on each SM (the Gram
+# kernel's __launch_bounds__) fill the card once at any plane
+FWD_TILE = 64
+FWD_BLOCKS_PER_SM = 2
 _PADDED_STATS = 2 * MAX_BINS + MAX_BINS * MAX_BINS
 # the backward's coefficients a sample: -w_I / m, -w_J / m, then EQ and
 # EQ^T, each as its 3xTF32 hi and lo parts
@@ -168,6 +175,16 @@ def _parzen_args(bins, sigma, minv, maxv):
             math.sqrt(2.0 * math.pi) * sigma, 2.0 * math.pi * sigma * sigma]
 
 
+def fwd_blocks(n: int, m: int, sms: int) -> int:
+    """Blocks a sample of the CUDA forward's Gram launch for n samples of m
+    pixels on a card of `sms` SMs: FWD_BLOCKS_PER_SM an SM split over the
+    samples, at most one a tile, at least one. It sizes both the launch
+    and the partials' scratch (one partial a block), so that no block
+    writes past the scratch."""
+    tiles = -(-m // FWD_TILE)
+    return max(1, min(tiles, -(-FWD_BLOCKS_PER_SM * sms // n)))
+
+
 def mi_fwd_cuda(I: torch.Tensor, J: torch.Tensor, bins: int = 64,
                 sigma: float = 1.0 / 64, minv: float = 0.0, maxv: float = 1.0):
     """Launch the forward kernels; (loss, stats) as `mi_fwd_plain`."""
@@ -175,15 +192,15 @@ def mi_fwd_cuda(I: torch.Tensor, J: torch.Tensor, bins: int = 64,
     _check_cuda(I, J)
     n = I.shape[0]
     m = I.numel() // n
-    chunks = -(-m // CHUNK)
     dev = I.device
-    partial = torch.empty(n * chunks * _PADDED_STATS, dtype=torch.float32, device=dev)
+    blocks = fwd_blocks(n, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty(n * blocks * _PADDED_STATS, dtype=torch.float32, device=dev)
     stats = torch.empty((n, 2 * bins + bins * bins), dtype=torch.float32, device=dev)
     per = torch.empty(n, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     rc = _launcher("san_mi_fwd")(
         I.data_ptr(), J.data_ptr(), partial.data_ptr(), stats.data_ptr(),
-        per.data_ptr(), loss.data_ptr(), n, m, bins,
+        per.data_ptr(), loss.data_ptr(), n, m, bins, blocks,
         *_parzen_args(bins, sigma, minv, maxv), stream(I),
     )
     check_launch(FWD, rc)
@@ -217,8 +234,8 @@ def mi_bwd_cuda(I: torch.Tensor, J: torch.Tensor, stats: torch.Tensor,
 
 _SIZES = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]  # n, m, bins
 _ARGTYPES = {
-    "san_mi_fwd": [ctypes.c_void_p] * 6 + _SIZES + [ctypes.c_float] * 5
-    + [ctypes.c_void_p],
+    "san_mi_fwd": [ctypes.c_void_p] * 6 + _SIZES + [ctypes.c_int]
+    + [ctypes.c_float] * 5 + [ctypes.c_void_p],
     "san_mi_bwd": [ctypes.c_void_p] * 7 + _SIZES + [ctypes.c_float] * 6
     + [ctypes.c_void_p],
 }

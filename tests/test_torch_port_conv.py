@@ -260,9 +260,9 @@ def test_chip_smoke_conv_build_check_reads_hmma_and_spills(monkeypatch):
     """chip_smoke.py's check of the built conv and MI libraries, on made-up
     ptxas logs and cuobjdump listings: it names each kernel from its
     mangled name, counts each kernel's HMMA of its type (TF32 in the f32
-    conv kernel and the MI backward's pixel kernel, bf16 in the bf16 conv
-    kernel) and fails on a kernel of either type without them, or on any
-    kernel with spills."""
+    conv kernel, the MI forward's Gram kernel and the MI backward's pixel
+    kernel, bf16 in the bf16 conv kernel) and fails on a kernel of either
+    type without them, or on any kernel with spills."""
     import subprocess
 
     cs = _chip_smoke()
@@ -307,36 +307,44 @@ def test_chip_smoke_conv_build_check_reads_hmma_and_spills(monkeypatch):
     with pytest.raises(AssertionError, match="HMMA or spills"):
         cs.check_build("conv.cu", "libconv.so", ptxas(0, 0))
 
-    # mi.cu: the backward's pixel kernel must show TF32 HMMA (3xTF32); no
-    # kernel of the source may spill, the FFMA ones included. The names as
-    # nvcc 12.8 mangles them, the anonymous namespace named after the file
+    # mi.cu: the forward's Gram kernel and the backward's pixel kernel must
+    # show TF32 HMMA (3xTF32); no kernel of the source may spill, the FFMA
+    # ones included. The names as nvcc 12.8 mangles them, the anonymous
+    # namespace named after the file
     mi = {name: f"_ZN37_GLOBAL__N__4ff34e87_5_mi_cu_70cd0373{len(name)}{name}EPKfS1_Pflf"
-          for name in ("mi_fwd_partial_kernel", "mi_bwd_coef_kernel", "mi_bwd_pixel_kernel")}
+          for name in ("mi_fwd_gram_kernel", "mi_fwd_reduce_kernel", "mi_bwd_coef_kernel",
+                       "mi_bwd_pixel_kernel")}
 
     def mi_ptxas(spill_coef):
         return "\n".join(
             f"ptxas info    : Function properties for {fn}\n"
             f"    0 bytes stack frame, {s} bytes spill stores, {s} bytes spill loads\n"
             f"ptxas info    : Used {r} registers, used 1 barriers"
-            for fn, r, s in ((mi["mi_fwd_partial_kernel"], 64, 0),
+            for fn, r, s in ((mi["mi_fwd_gram_kernel"], 125, 0),
+                             (mi["mi_fwd_reduce_kernel"], 29, 0),
                              (mi["mi_bwd_coef_kernel"], 32, spill_coef),
                              (mi["mi_bwd_pixel_kernel"], 120, 0)))
 
-    def mi_sass(op):
+    def mi_sass(op, on=("gram", "pixel")):
         return "\n".join(
             f"\t\tFunction : {fn}\n" + (f"        /*0010*/ {op} R4, R8, R12, R4 ;\n" * 48
-                                        if "pixel" in fn else "")
+                                        if any(k in fn for k in on) else "")
             + "        /*0020*/ FFMA R1, R2, R3, R1 ;" for fn in mi.values())
 
-    # (coef spill, pixel kernel's HMMA, passes): right; a spill in an FFMA
-    # kernel; bf16 HMMA where TF32 ones are required
-    for spill, op, ok in ((0, "HMMA.1688.F32.TF32", True), (8, "HMMA.1688.F32.TF32", False),
-                          (0, "HMMA.16816.F32.BF16", False)):
-        monkeypatch.setattr(subprocess, "run", lambda cmd, _s=mi_sass(op), **kw:
+    # (coef spill, HMMA type, kernels with it, passes): right; a spill in an
+    # FFMA kernel; bf16 HMMA where TF32 ones are required; the forward's
+    # Gram kernel without HMMA; the backward's pixel kernel without them
+    for spill, op, on, ok in ((0, "HMMA.1688.F32.TF32", ("gram", "pixel"), True),
+                              (8, "HMMA.1688.F32.TF32", ("gram", "pixel"), False),
+                              (0, "HMMA.16816.F32.BF16", ("gram", "pixel"), False),
+                              (0, "HMMA.1688.F32.TF32", ("pixel",), False),
+                              (0, "HMMA.1688.F32.TF32", ("gram",), False)):
+        monkeypatch.setattr(subprocess, "run", lambda cmd, _s=mi_sass(op, on), **kw:
                             subprocess.CompletedProcess(cmd, 0, _s, ""))
         if ok:
             assert cs.check_build("mi.cu", "libmi.so", mi_ptxas(spill)) == {
-                "mi_fwd_partial_kernel": {"spill": 0, "registers": 64, "hmma": 0},
+                "mi_fwd_gram_kernel": {"spill": 0, "registers": 125, "hmma": 48},
+                "mi_fwd_reduce_kernel": {"spill": 0, "registers": 29, "hmma": 0},
                 "mi_bwd_coef_kernel": {"spill": 0, "registers": 32, "hmma": 0},
                 "mi_bwd_pixel_kernel": {"spill": 0, "registers": 120, "hmma": 48}}
         else:

@@ -350,6 +350,129 @@ def test_mi_response_quotient_is_the_divide_to_the_bit():
         assert q == x / norm1d, (x, q, x / norm1d)
 
 
+def _chip_smoke():
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    return chip_smoke
+
+
+def _mi_stats_emulated(I, J, three):
+    """The MI forward kernel's statistics (csrc/mi.cu's Gram launch and the
+    sum of its partials), emulated: the f32 responses' marginal sums, and
+    the joint Gram P_I P_J^T over tiles of 64 pixels (zero-padded), each
+    operand split into hi = tf32(v) and lo = tf32(v - hi), a tile's product
+    as lo.hi + hi.lo + hi.hi (three = True, 3xTF32) or hi.hi alone (TF32)
+    into a fresh f32 sum, then added in f32 to the running sum."""
+    n, bins, sigma, tile = I.shape[0], 64, 1.0 / 64, kmi.FWD_TILE
+    vi, vj = I.reshape(n, -1), J.reshape(n, -1)
+    _, p_i = kmi._parzen(vi, bins, sigma, 0.0, 1.0)
+    _, p_j = kmi._parzen(vj, bins, sigma, 0.0, 1.0)
+    m = vi.shape[1]
+    pad = -m % tile
+    hi = lambda x: torch.from_numpy(_tf32(x.contiguous().numpy()))
+    joint = torch.zeros((n, bins, bins))
+    for k in range(0, m + pad, tile):
+        a = torch.nn.functional.pad(p_i, (0, pad))[:, :, k:k + tile]
+        b = torch.nn.functional.pad(p_j, (0, pad))[:, :, k:k + tile].transpose(1, 2)
+        ah, bh = hi(a), hi(b)
+        if three:
+            al, bl = hi(a - ah), hi(b - bh)
+            joint = joint + ((al @ bh + ah @ bl) + ah @ bh)
+        else:
+            joint = joint + ah @ bh
+    return torch.cat([p_i.sum(2), p_j.sum(2), joint.reshape(n, -1)], 1)
+
+
+@pytest.mark.parametrize("case", ["near_top_bin_24x24", "random_64x64"])
+def test_mi_fwd_3xtf32_emulation_meets_the_stats_bar_and_tf32_misses_it(case):
+    """The MI forward kernel's arithmetic (csrc/mi.cu, the joint Gram as
+    3xTF32 on the tensor cores, a fresh sum each 64 pixels), emulated on
+    the CPU: its statistics land within chip_smoke.MI_STATS_TOL of max of
+    the float64 plain forward's, its loss within MI_LOSS_ATOL, where TF32
+    alone (hi.hi) misses the statistics bar; near the top bin the f32
+    closed-form backward fed its statistics stays within MI_F64_TOL of max
+    of the float64 gradient, where fed TF32's it does not. These are the
+    bars the kernels are held to on the card."""
+    cs = _chip_smoke()
+    if case == "near_top_bin_24x24":
+        rng, shape = np.random.default_rng(23), (2, 1, 24, 24)
+        I = (0.9 + 0.1 * rng.random(shape)).astype(np.float32)
+        J = np.clip(I + 0.01 * rng.standard_normal(shape), 0.9, 1.0).astype(np.float32)
+    else:
+        rng, shape = np.random.default_rng(22), (2, 1, 64, 64)
+        I = rng.random(shape).astype(np.float32)
+        J = np.clip(I + 0.1 * rng.standard_normal(shape), 0.0, 1.0).astype(np.float32)
+    tI, tJ = torch.from_numpy(I), torch.from_numpy(J)
+    I64 = tI.double().requires_grad_()
+    J64 = tJ.double().requires_grad_()
+    loss64, stats64 = kmi.mi_fwd_plain(I64, J64)
+    loss64.backward()
+    loss64, stats64 = float(loss64.detach()), stats64.detach()
+    m = I[0].size
+
+    def errs(three):
+        stats = _mi_stats_emulated(tI, tJ, three)
+        e_stats = float((stats.double() - stats64).abs().max() / stats64.abs().max())
+        e_loss = abs(float(kmi.neg_mi(stats, m, 64, 1.0 / 64).mean()) - loss64)
+        got = kmi.mi_bwd_plain(tI, tJ, stats, torch.ones(()))
+        scale = max(float(I64.grad.abs().max()), float(J64.grad.abs().max()))
+        e_grad = max(float((g.double() - w).abs().max())
+                     for g, w in zip(got, (I64.grad, J64.grad))) / scale
+        return e_stats, e_loss, e_grad
+
+    (s3, l3, g3), (s1, _, g1) = errs(True), errs(False)
+    assert s3 <= cs.MI_STATS_TOL < s1, (s3, s1)
+    assert l3 <= cs.MI_LOSS_ATOL, l3
+    if case == "near_top_bin_24x24":
+        assert g3 <= cs.MI_F64_TOL < g1, (g3, g1)
+    else:
+        assert g3 <= cs.MI_GRAD_TOL, g3
+
+
+@pytest.mark.parametrize("n, m, sms, blocks", [
+    (4, 320 * 320, 132, 66), (4, 160 * 160, 132, 66), (4, 80 * 80, 132, 66),
+    (8, 320 * 320, 132, 33), (2, 317 * 301, 132, 132), (1, 49, 132, 1),
+    (3, 5 * 64, 132, 5), (3, 5 * 64 + 1, 132, 6), (4, 320 * 320, 114, 57),
+    (264, 4096, 132, 1), (65535, 64, 132, 1)])
+def test_mi_fwd_grid_and_partials_follow_one_rule(monkeypatch, n, m, sms, blocks):
+    """The CUDA forward's blocks a sample fill the card once (2 an SM, the
+    Gram kernel's __launch_bounds__ minimum in csrc/mi.cu) at every plane,
+    at most one a 64-pixel tile; mi_fwd_cuda sizes the partials' scratch
+    (one partial of 4224 floats a block) and the launch from that one
+    number, so no block writes past the scratch."""
+    assert kmi.fwd_blocks(n, m, sms) == blocks
+    src = open(os.path.join(REPO, "spatialalignmentnetwork_tpu_torch", "csrc", "mi.cu")).read()
+    assert f"constexpr int kFwdBlocks = {kmi.FWD_BLOCKS_PER_SM};" in src
+    assert f"constexpr int kFwdTile = {kmi.FWD_TILE};" in src
+    if n * m > 2**20:
+        return  # the rule alone; the wrapper below at the smaller sizes
+    sizes, args = [], []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes.append(t.numel())
+        return t
+
+    class Props:
+        multi_processor_count = sms
+
+    monkeypatch.setattr(kmi, "_check_cuda", lambda *t: None)
+    monkeypatch.setattr(kmi, "stream", lambda t: 0)
+    monkeypatch.setattr(kmi.torch.cuda, "get_device_properties", lambda dev: Props())
+    monkeypatch.setattr(kmi.torch, "empty", empty)
+    monkeypatch.setattr(kmi, "_launcher", lambda symbol: lambda *a: args.append(a) or 0)
+    x = real_empty((n, 1, m))
+    kmi.mi_fwd_cuda(x, x)
+    kernels.reset_launches()
+    (a,) = args
+    assert a[9] == blocks and len(a) == len(kmi._ARGTYPES["san_mi_fwd"])
+    assert sizes[0] == n * blocks * (2 * 64 + 64 * 64)
+
+
 # ------------------------------------------------------------ multi-scale
 def _pair(rng, shape):
     I = rng.random(shape).astype(np.float32)
@@ -472,12 +595,7 @@ def test_wrappers_raise_without_launching(monkeypatch):
 def test_chip_smoke_registration_phase_runs_on_cpu():
     """chip_smoke.py's registration-loss phase on the CPU at a small shape:
     its logic is exercised here, its numbers only on a card."""
-    sys.path.insert(0, REPO)
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(REPO)
-    launches, ms = chip_smoke.check_registration(
+    launches, ms = _chip_smoke().check_registration(
         np.random.default_rng(0), device="cpu", shape=32, batch=2)
     assert launches == {}  # CPU tensors take the plain versions
     assert set(ms) == {"lncc_loss", "ms_lncc_loss", "mi_loss", "ms_mi_loss"}
