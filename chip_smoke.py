@@ -14,7 +14,8 @@ failure:
      all at once; read the conv and MI libraries' SASS (cuobjdump) and
      ptxas logs: tensor-core HMMA in every conv kernel instance (TF32 ones
      in the f32 kernels, bf16 ones in the bf16 kernels) and TF32 ones in
-     the MI backward's pixel kernel, no spills in any of their kernels;
+     the MI kernels' products, no spills in any of their kernels; the
+     SSIM and LNCC libraries' ptxas logs: no spills;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and more (all padding modes, C = 2, a
      non-square plane, augmentation's 352 plane, an output plane of odd
@@ -24,6 +25,10 @@ failure:
      held to float64, its bits run to run and at ragged pixel counts from
      inputs that end where mapped memory ends (phases 2 and 3 for MI
      alone: `python3 -c "import chip_smoke; chip_smoke.mi_phases()"`); the
+     SSIM and LNCC backwards' bits run to run on every case and their
+     peak device memory (phases 2 and 3 for SSIM and LNCC alone, with the
+     backwards timed at 160 and 80 too and each launch's device time:
+     `python3 -c "import chip_smoke; chip_smoke.loss_phases()"`); the
      3x3 conv forward and input gradient, f32 and bf16, held
      to float64 on every conv of the ladder of phase 9 and on ragged
      planes, channels and batches), then its time beside its plain version, the one-call PyTorch equivalent where
@@ -558,6 +563,7 @@ def check_ssim(rng):
         eb = max(rel_err(dX, wX), rel_err(dY, wY))
         if not eb <= SSIM_GRAD_TOL:
             raise AssertionError(f"ssim_bwd {shape}: {eb}")
+        same_bits("ssim_bwd", shape, (dX, dY), kssim.ssim_bwd_cuda(X, Y, one))
         err["bwd"] = max(err["bwd"], float((dX - wX).abs().max()),
                          float((dY - wY).abs().max()))
         log(f"ssim {list(shape)}: loss |kernel-plain| {e:.3g} (tol "
@@ -581,7 +587,8 @@ def check_ssim(rng):
     b_fwd = 8 * px + 4 * shape[0] * shape[1]  # X, Y read; per-plane sums
     b_bwd = 16 * px + 4  # X, Y (and g) read; dX, dY written
     log(f"ssim_fwd timing {list(shape)}: {t_fwd} ms ({b_fwd / 1e6:.2f} MB); "
-        f"ssim_bwd: {t_bwd} ms ({b_bwd / 1e6:.2f} MB); no one-call "
+        f"ssim_bwd: {t_bwd} ms ({b_bwd / 1e6:.2f} MB), peak device memory of a "
+        f"call {peak_mb(lambda: kssim.ssim_bwd_cuda(*sets[0])):.2f} MB; no one-call "
         "PyTorch equivalent")
     return [
         entry(kssim.FWD, "ssim.cu", "ssim.py:81", err["fwd"], ms_fwd, b_fwd,
@@ -589,6 +596,54 @@ def check_ssim(rng):
         entry(kssim.BWD, "ssim.cu", "ssim.py:204", err["bwd"], ms_bwd, b_bwd,
               200 * px),
     ]
+
+
+def same_bits(name, shape, got, again):
+    """Fail unless a second run of a kernel gave the same bits."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {list(shape)}: the bits differ run to run")
+
+
+def peak_mb(fn):
+    """MB of device memory a call of `fn` holds at its peak beyond what was
+    allocated before it (its outputs and any scratch)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak / 1e6
+
+
+def time_window_bwds(rng, side):
+    """ssim_bwd's and lncc_bwd's (win 9) device ms alone at [4, 1, side,
+    side], on 20 sets of X and Y = 0.9 X + 0.05 (ms_lncc_loss's planes are
+    320, 160 and 80), beside their byte bound: X and Y read, dX and dY
+    written. Returns {name: ms}."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+    from spatialalignmentnetwork_tpu_torch.kernels import ssim as kssim
+
+    dev = torch.device("cuda")
+    one = torch.ones((), device=dev)
+    shape = (TRAIN_BATCH, 1, side, side)
+    sets = []
+    for _ in range(20):
+        X = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        sets.append((X, (X * 0.9 + 0.05).contiguous(), one))
+    ms, times = time_all({"ssim_bwd": kssim.ssim_bwd_cuda,
+                          "lncc_bwd": klncc.lncc_bwd_cuda}, sets)
+    nbytes = 16 * int(np.prod(shape)) + 4
+    log(f"window backwards alone {list(shape)}: {times} ms; byte bound "
+        f"{bound(nbytes, 0)[0]:.5f} ms")
+    return ms
 
 
 def registration_pair(rng, n, size):
@@ -645,6 +700,8 @@ def check_lncc(rng):
         err["fwd"] = max(err["fwd"], e)
         dI, dJ = klncc.lncc_bwd_cuda(I, J, one, win)
         wI, wJ = klncc.lncc_bwd_plain(I, J, one, win)
+        same_bits(f"lncc_bwd win {win} {kind}", shape, (dI, dJ),
+                  klncc.lncc_bwd_cuda(I, J, one, win))
         eb = max(rel_err(dI, wI), rel_err(dJ, wJ))
         tol = LNCC_FLAT_GRAD_TOL if kind == "phantoms" else LNCC_GRAD_TOL
         if kind == "phantoms":
@@ -684,7 +741,8 @@ def check_lncc(rng):
     f_fwd = (10 * (win - 1) + 29) * px
     f_bwd = (20 * (win - 1) + 48) * px
     log(f"lncc_fwd timing {list(shape)} win 9: {t_fwd} ms ({b_fwd / 1e6:.2f} MB); "
-        f"lncc_bwd: {t_bwd} ms ({b_bwd / 1e6:.2f} MB); no one-call PyTorch "
+        f"lncc_bwd: {t_bwd} ms ({b_bwd / 1e6:.2f} MB), peak device memory of a call "
+        f"{peak_mb(lambda: klncc.lncc_bwd_cuda(*sets[0])):.2f} MB; no one-call PyTorch "
         "equivalent")
     return [
         entry(klncc.FWD, "lncc.cu", "lncc.py:57", err["fwd"], ms_fwd, b_fwd, f_fwd),
@@ -1350,6 +1408,9 @@ HMMA = {"conv.cu": {"conv3x3_tf32_kernel": "HMMA.1688.F32.TF32",
 # sources whose every kernel of the stem is one HMMA names: no conv kernel
 # off the tensor cores
 TENSOR_CORES_ONLY = {"conv.cu": "conv3x3"}
+# sources held to the build check: the HMMA ones, and the window losses'
+# (no HMMA required, no spill allowed)
+BUILD_CHECKED = (*HMMA, "lncc.cu", "ssim.cu")
 
 
 def check_build(source, lib, compiler_log):
@@ -1682,6 +1743,74 @@ def mi_phases():
     return 0
 
 
+# the window losses' entry points; each shows at least one launch named
+# after it in the trace (the fused backwards one, a two-launch tree two)
+LOSS_ENTRIES = ("ssim_fwd", "ssim_bwd", "lncc_fwd", "lncc_bwd")
+
+
+def profile_losses(iters=10):
+    """Device us a launch of each SSIM and LNCC kernel (torch.profiler),
+    over `iters` calls of each forward and backward at [4,1,320,320] (LNCC
+    at win 9): how each entry point's time splits over its launches. Fails
+    unless each of LOSS_ENTRIES shows a launch."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+    from spatialalignmentnetwork_tpu_torch.kernels import ssim as kssim
+
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.random((TRAIN_BATCH, 1, SHAPE, SHAPE)).astype(np.float32)).cuda()
+    Y = (X * 0.9 + 0.05).contiguous()
+    one = torch.ones((), device=X.device)
+    calls = (lambda: kssim.ssim_fwd_cuda(X, Y), lambda: kssim.ssim_bwd_cuda(X, Y, one),
+             lambda: klncc.lncc_fwd_cuda(X, Y), lambda: klncc.lncc_bwd_cuda(X, Y, one))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"\b((?:ssim|lncc)_\w+_kernel)(?:<\d+>)?\(", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            out[name.group(1)] = e.device_time
+    log(f"ssim and lncc kernels, device us a launch over {iters} calls "
+        f"[4,1,320,320]: {out}")
+    missing = [k for k in LOSS_ENTRIES if not any(n.startswith(k) for n in out)]
+    if missing:
+        raise AssertionError(f"no launch in the trace for {missing}")
+    return out
+
+
+def loss_phases():
+    """The SSIM and LNCC kernels' phases alone (the build check of ssim.cu
+    and lncc.cu, the kernels against their plain versions with the
+    backwards' bits run to run, their times at 320² and the backwards' at
+    160² and 80², and each launch's share), for work on those kernels; the
+    whole run is `main`. Returns the process's exit code."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    log(f"card: {nvidia_smi()}")
+    for source, (lib, compiler_log) in build_kernels(["ssim.cu", "lncc.cu"]).items():
+        check_build(source, lib, compiler_log)
+    rng = np.random.default_rng(0)
+    for e in (*check_ssim(rng), *check_lncc(rng)):
+        log(json.dumps(e))
+    for side in (SHAPE // 2, SHAPE // 4):
+        time_window_bwds(rng, side)
+    profile_losses()
+    return 0
+
+
 def main():
     import torch
 
@@ -1695,11 +1824,13 @@ def main():
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
     built = build_kernels(["grid_sample.cu", "ssim.cu", "lncc.cu", "mi.cu", "conv.cu"])
-    for source in HMMA:
+    for source in BUILD_CHECKED:
         check_build(source, *built[source])
     rng = np.random.default_rng(0)
     entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng),
                *check_lncc(rng), *check_mi(rng)]
+    for side in (SHAPE // 2, SHAPE // 4):  # ms_lncc_loss's smaller levels
+        time_window_bwds(rng, side)
     conv_err = check_conv(rng)
     main_paths = [check_serving(rng), check_train(rng)]
     autograd = check_autograd(rng)

@@ -24,19 +24,27 @@
 //   dX = -scale (box(G_ux) + 2 X box(G_uvv) + Y box(G_uxy)),
 //   dY = -scale (box(G_uy) + 2 Y box(G_uvv) + X box(G_uxy)),
 // box() the transposed 7 x 7 window sum and scale = g / (N C valid 49).
-// The simple form: a first launch writes the four G maps
-// [4, N*C, H-6, W-6] to device memory; a second stages 38 x 38 tiles of
-// them (zero outside the valid windows) and box-scatters them separably.
-// Fusing the two, so the G maps never leave the chip, is later work.
+// One launch: as the Pallas kernel keeps the G maps in VMEM, a block keeps
+// them in shared memory for its tile. A 32 x 32 pixel tile is covered by
+// 38 x 38 windows, whose statistics need 44 x 44 pixels, staged by
+// cp.async with zero fill outside the plane, all copies in flight behind
+// one barrier. The sums keep the forward's order (rows, then columns,
+// each in order); no atomics, so the bits are the same run to run. 512
+// threads and 58 KB of shared memory a block: two blocks an SM.
 //
 // Bound on the H100 SXM: memory. At the train shape (X and Y [4, 1, 320,
 // 320]) the forward must read 3.3 MB: about 0.98 us at 3.35 TB/s (about 100
-// f32 operations a pixel are under 1 us at 67 TFLOP/s). The fused backward
-// would read 3.3 MB and write 3.3 MB: about 1.96 us. This two-launch form
-// also writes and reads the G maps (6.3 MB each way at that shape).
+// f32 operations a pixel are under 1 us at 67 TFLOP/s). The backward must
+// read 3.3 MB and write 3.3 MB: about 1.96 us. What holds the fused
+// backward is instruction issue, as in lncc.cu: in-order sums over a tile
+// grown by its halo (1.41 windows and 1.89 staged pixels an output) and
+// the G maps' five IEEE divides a window (without the G arithmetic it
+// takes about 12% less time; PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -176,108 +184,222 @@ __global__ void ssim_plane_sum_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) sums[blockIdx.x] = total;
 }
 
-// grid (tiles_x, tiles_y, N*C) over the valid windows; writes
-// coef[q][plane][hv][wv] for q = ux, uy, uxy, uvv.
-__global__ void __launch_bounds__(kThreads)
-    ssim_bwd_coef_kernel(const float* __restrict__ X,
-                         const float* __restrict__ Y,
-                         float* __restrict__ coef, int h, int w,
-                         int64_t planes) {
-  __shared__ float xs[kHalo][kHalo];
-  __shared__ float ys[kHalo][kHalo];
-  __shared__ float hs[5][kHalo][kTile];
-  const int64_t plane = blockIdx.z;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-  const int hv = h - kWin + 1;
-  const int wv = w - kWin + 1;
-  stage_and_row_sums(X + plane * h * w, Y + plane * h * w, h, w, r0, c0, xs,
-                     ys, hs);
-  const int64_t map = planes * hv * wv;
-  const int j = threadIdx.x;
-  for (int i = threadIdx.y; i < kTile; i += kThreadsY) {
-    if (r0 + i >= hv || c0 + j >= wv) continue;
-    const Stats u = column_sums(hs, i, j);
-    const Terms t = ssim_terms(u);
-    const float D = t.B1 * t.B2;
-    const float S = (t.A1 * t.A2) / D;
-    const float sA1 = t.A2 / D;
-    const float sA2 = t.A1 / D;
-    const float sB1 = -S / t.B1;
-    const float sB2 = -S / t.B2;
-    const float g_ux = sA1 * (2.0f * u.uy) + sA2 * (-2.0f * kCovNorm * u.uy) +
-                       sB1 * (2.0f * u.ux) + sB2 * (-2.0f * kCovNorm * u.ux);
-    const float g_uy = sA1 * (2.0f * u.ux) + sA2 * (-2.0f * kCovNorm * u.ux) +
-                       sB1 * (2.0f * u.uy) + sB2 * (-2.0f * kCovNorm * u.uy);
-    const int64_t o = plane * hv * wv + (int64_t)(r0 + i) * wv + (c0 + j);
-    coef[o] = g_ux;
-    coef[map + o] = g_uy;
-    coef[2 * map + o] = sA2 * (2.0f * kCovNorm);  // dS/duxy
-    coef[3 * map + o] = sB2 * kCovNorm;           // dS/duxx == dS/duyy
-  }
+// 4 bytes from global to shared memory, zero-filled where `in` is false
+// (src-size 0: nothing is read); `src` is a mapped address either way.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
 }
 
-// grid (tiles_x, tiles_y, N*C) over the pixels; box-scatters the G maps of
-// the windows covering each pixel and forms dX, dY.
-__global__ void __launch_bounds__(kThreads)
-    ssim_bwd_scatter_kernel(const float* __restrict__ X,
-                            const float* __restrict__ Y,
-                            const float* __restrict__ coef,
-                            const float* __restrict__ gout, float scale,
-                            float* __restrict__ dX, float* __restrict__ dY,
-                            int h, int w, int64_t planes) {
-  __shared__ float gs[4][kHalo][kHalo];
-  __shared__ float hs[4][kHalo][kTile];
-  const int64_t plane = blockIdx.z;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The fused backward's tile: the windows whose top-left corners are in
+// [r0 - 6, r0 + kTile) cover the kTile x kTile pixel tile at (r0, c0), C =
+// 38 a side; their statistics need S = 44 pixels a side. Each of the four
+// separable passes gives a thread kSeg outputs in a row along its sum
+// (rows) or down it (columns), so that a staged value is loaded once for
+// kSeg outputs and the 7 terms of a sum are added in order from registers.
+// Row strides are odd, so that the 32 lanes of a warp, on 32 rows of one
+// column, hit 32 banks. The row sums share their space with the box
+// pass's row sums, the staged X and Y with the G maps.
+constexpr int kSeg = 4;
+constexpr int kBwdThreads = 512;
+constexpr int kSegOut = kTile * kTile / kBwdThreads;  // rows a thread, last pass
+
+constexpr int odd(int n) { return n | 1; }
+constexpr int max2(int a, int b) { return a > b ? a : b; }
+
+struct Bwd {
+  static constexpr int S = kTile + 2 * (kWin - 1);  // staged pixels a side
+  static constexpr int C = kTile + kWin - 1;        // windows a side
+  static constexpr int kSegsC = (C + kSeg - 1) / kSeg;
+  static constexpr int XS = odd(max2(S, kSegsC * kSeg + kWin - 1));
+  static constexpr int HR = max2(S, kSegsC * kSeg + kWin - 1);
+  static constexpr int CS = odd(C);
+  static constexpr int BS = odd(kTile);
+  static constexpr int kFirst = max2(2 * S * XS, 4 * C * CS);   // X, Y; then G
+  static constexpr int kSecond = max2(5 * HR * CS, 4 * C * BS);  // row sums
+  static constexpr int kBytes = (kFirst + kSecond) * (int)sizeof(float);
+};
+
+// grid (tiles_x, tiles_y, N*C) over the pixels, one kTile x kTile tile a
+// block: stages X and Y with the 6-pixel halo both ways, takes the
+// statistics of the 38 x 38 windows that cover the tile (rows, then
+// columns, each in order, as the forward), forms the four G maps in shared
+// memory (0 for a window outside the valid windows [0, h-6) x [0, w-6),
+// as ops/pallas/ssim.py:172-182), box-scatters them separably and writes
+// dX, dY. Nothing leaves the block but dX and dY.
+__global__ void __launch_bounds__(kBwdThreads)
+    ssim_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
+                    const float* __restrict__ gout, float scale,
+                    float* __restrict__ dX, float* __restrict__ dY, int h,
+                    int w) {
+  using G = Bwd;
+  constexpr int W = kWin;
+  extern __shared__ float smem[];
+  float* xs = smem;  // [S][XS], pixel (r0 - 6 + r, c0 - 6 + c)
+  float* ys = xs + G::S * G::XS;
+  float* gs = smem;  // [4][C][CS] after the row pass, the window whose
+                     // top-left corner is (r0 - 6 + i, c0 - 6 + j)
+  float* hs = smem + G::kFirst;  // [5][HR][CS] row sums, then [4][C][BS]
+  const int64_t base = (int64_t)blockIdx.z * h * w;
   const int r0 = blockIdx.y * kTile;
   const int c0 = blockIdx.x * kTile;
-  const int hv = h - kWin + 1;
-  const int wv = w - kWin + 1;
-  const int64_t map = planes * hv * wv;
-  const float* cp = coef + plane * hv * wv;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  // windows (r0 - 6 + r, c0 - 6 + c) cover the tile's pixels
-  for (int k = tid; k < kHalo * kHalo; k += kThreads) {
-    const int r = k / kHalo;
-    const int c = k - r * kHalo;
-    const int wr = r0 - (kWin - 1) + r;
-    const int wc = c0 - (kWin - 1) + c;
-    const bool in = wr >= 0 && wr < hv && wc >= 0 && wc < wv;
-    const int64_t o = (int64_t)wr * wv + wc;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) gs[q][r][c] = in ? cp[q * map + o] : 0.0f;
+  const int hv = h - W + 1;
+  const int wv = w - W + 1;
+  const int tid = threadIdx.x;
+  const float sg = -scale * *gout;
+
+  // all copies in flight at once, behind one barrier; zero outside the plane
+  for (int k = tid; k < G::S * G::S; k += kBwdThreads) {
+    const int r = k / G::S, c = k % G::S;
+    const int gr = r0 - (W - 1) + r, gc = c0 - (W - 1) + c;
+    const bool in = gr >= 0 && gr < h && gc >= 0 && gc < w;
+    const int64_t o = base + (in ? (int64_t)gr * w + gc : 0);
+    cp_async4(xs + r * G::XS + c, X + o, in);
+    cp_async4(ys + r * G::XS + c, Y + o, in);
   }
+  cp_async_wait_all();
   __syncthreads();
-  for (int k = tid; k < kHalo * kTile; k += kThreads) {
-    const int r = k / kTile;
-    const int j = k - r * kTile;
+
+  // row sums: thread (r, segment) takes the sums at kSeg window columns
+  for (int k = tid; k < G::S * G::kSegsC; k += kBwdThreads) {
+    const int r = k % G::S, j0 = (k / G::S) * kSeg;
+    float a[kSeg + W - 1], b[kSeg + W - 1];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float acc = gs[q][r][j];
+    for (int t = 0; t < kSeg + W - 1; ++t) {
+      a[t] = xs[r * G::XS + j0 + t];
+      b[t] = ys[r * G::XS + j0 + t];
+    }
 #pragma unroll
-      for (int d = 1; d < kWin; ++d) acc += gs[q][r][j + d];
-      hs[q][r][j] = acc;
+    for (int t = 0; t < kSeg; ++t) {
+      if (j0 + t >= G::C) break;
+      float sx = 0.0f, sy = 0.0f, sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
+#pragma unroll
+      for (int d = 0; d < W; ++d) {
+        const float u = a[t + d];
+        const float v = b[t + d];
+        sx += u;
+        sy += v;
+        sxx += u * u;
+        syy += v * v;
+        sxy += u * v;
+      }
+      const int o = r * G::CS + j0 + t;
+      hs[o] = sx;
+      hs[G::HR * G::CS + o] = sy;
+      hs[2 * G::HR * G::CS + o] = sxx;
+      hs[3 * G::HR * G::CS + o] = syy;
+      hs[4 * G::HR * G::CS + o] = sxy;
+    }
+  }
+  __syncthreads();  // the staged X and Y are dead: the G maps take their space
+
+  // column sums and G maps: thread (j, segment) takes kSeg windows
+  for (int k = tid; k < G::C * G::kSegsC; k += kBwdThreads) {
+    const int j = k % G::C, i0 = (k / G::C) * kSeg;
+    float m[5][kSeg];  // the window means
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      float v[kSeg + W - 1];
+#pragma unroll
+      for (int t = 0; t < kSeg + W - 1; ++t) v[t] = hs[(q * G::HR + i0 + t) * G::CS + j];
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) {
+        float acc = v[t];
+#pragma unroll
+        for (int d = 1; d < W; ++d) acc += v[t + d];
+        m[q][t] = acc * kInv;
+      }
+    }
+    const int wc = c0 - (W - 1) + j;
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) {
+      const int i = i0 + t;
+      if (i >= G::C) break;
+      const int wr = r0 - (W - 1) + i;
+      float g_ux = 0.0f, g_uy = 0.0f, g_uxy = 0.0f, g_uvv = 0.0f;
+      if (wr >= 0 && wr < hv && wc >= 0 && wc < wv) {
+        const Stats u{m[0][t], m[1][t], m[2][t], m[3][t], m[4][t]};
+        const Terms tm = ssim_terms(u);
+        const float D = tm.B1 * tm.B2;
+        const float S = (tm.A1 * tm.A2) / D;
+        const float sA1 = tm.A2 / D;
+        const float sA2 = tm.A1 / D;
+        const float sB1 = -S / tm.B1;
+        const float sB2 = -S / tm.B2;
+        g_ux = sA1 * (2.0f * u.uy) + sA2 * (-2.0f * kCovNorm * u.uy) +
+               sB1 * (2.0f * u.ux) + sB2 * (-2.0f * kCovNorm * u.ux);
+        g_uy = sA1 * (2.0f * u.ux) + sA2 * (-2.0f * kCovNorm * u.ux) +
+               sB1 * (2.0f * u.uy) + sB2 * (-2.0f * kCovNorm * u.uy);
+        g_uxy = sA2 * (2.0f * kCovNorm);  // dS/duxy
+        g_uvv = sB2 * kCovNorm;           // dS/duxx == dS/duyy
+      }
+      const int o = i * G::CS + j;
+      gs[o] = g_ux;
+      gs[G::C * G::CS + o] = g_uy;
+      gs[2 * G::C * G::CS + o] = g_uxy;
+      gs[3 * G::C * G::CS + o] = g_uvv;
     }
   }
   __syncthreads();
-  const float s = -scale * *gout;
-  const int j = threadIdx.x;
-  const int64_t base = plane * h * w;
-  for (int i = threadIdx.y; i < kTile; i += kThreadsY) {
-    if (r0 + i >= h || c0 + j >= w) continue;
-    float b[4];
+
+  // box rows: thread (i, segment) takes kSeg of the tile's columns
+  float* bs = hs;
+  for (int k = tid; k < G::C * (kTile / kSeg); k += kBwdThreads) {
+    const int i = k % G::C, j0 = (k / G::C) * kSeg;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      float acc = hs[q][i][j];
+      float v[kSeg + W - 1];
 #pragma unroll
-      for (int d = 1; d < kWin; ++d) acc += hs[q][i + d][j];
-      b[q] = acc;
+      for (int t = 0; t < kSeg + W - 1; ++t) v[t] = gs[(q * G::C + i) * G::CS + j0 + t];
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) {
+        float acc = v[t];
+#pragma unroll
+        for (int d = 1; d < W; ++d) acc += v[t + d];
+        bs[(q * G::C + i) * G::BS + j0 + t] = acc;
+      }
     }
-    const int64_t o = base + (int64_t)(r0 + i) * w + (c0 + j);
-    const float x = X[o];
-    const float y = Y[o];
-    dX[o] = s * (b[0] + 2.0f * x * b[3] + y * b[2]);
-    dY[o] = s * (b[1] + 2.0f * y * b[3] + x * b[2]);
+  }
+  __syncthreads();
+
+  // box columns and dX, dY: thread (j, segment) takes kSegOut of the tile's
+  // rows, a warp a segment, so each store is 32 neighbours
+  const int j = tid % kTile, i0 = (tid / kTile) * kSegOut;
+  int64_t o[kSegOut];
+  float x[kSegOut], y[kSegOut];  // loaded before the sums, to hide their latency
+#pragma unroll
+  for (int t = 0; t < kSegOut; ++t) {
+    const bool in = r0 + i0 + t < h && c0 + j < w;
+    o[t] = base + (in ? (int64_t)(r0 + i0 + t) * w + (c0 + j) : 0);
+    x[t] = X[o[t]];
+    y[t] = Y[o[t]];
+  }
+  float b[4][kSegOut];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float v[kSegOut + W - 1];
+#pragma unroll
+    for (int t = 0; t < kSegOut + W - 1; ++t) v[t] = bs[(q * G::C + i0 + t) * G::BS + j];
+#pragma unroll
+    for (int t = 0; t < kSegOut; ++t) {
+      float acc = v[t];
+#pragma unroll
+      for (int d = 1; d < W; ++d) acc += v[t + d];
+      b[q][t] = acc;
+    }
+  }
+  if (c0 + j >= w) return;
+#pragma unroll
+  for (int t = 0; t < kSegOut; ++t) {
+    if (r0 + i0 + t >= h) break;
+    dX[o[t]] = sg * (b[0][t] + 2.0f * x[t] * b[3][t] + y[t] * b[2][t]);
+    dY[o[t]] = sg * (b[1][t] + 2.0f * y[t] * b[3][t] + x[t] * b[2][t]);
   }
 }
 
@@ -308,21 +430,30 @@ extern "C" int san_ssim_fwd(const void* X, const void* Y, void* partial,
   return (int)cudaGetLastError();
 }
 
-// coef: [4 * planes * (h-6) * (w-6)] scratch; gout: the upstream gradient
-// of the loss (one f32 on the device); scale = 1 / (N C valid 49);
-// dX, dY: [planes, h, w].
-extern "C" int san_ssim_bwd(const void* X, const void* Y, void* coef,
-                            const void* gout, float scale, void* dX, void* dY,
-                            int64_t planes, int h, int w, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 block(kThreadsX, kThreadsY);
-  ssim_bwd_coef_kernel<<<tiles(h - kWin + 1, w - kWin + 1, planes), block, 0,
-                         s>>>((const float*)X, (const float*)Y, (float*)coef,
-                              h, w, planes);
-  const int rc = (int)cudaGetLastError();
+// gout: the upstream gradient of the loss (one f32 on the device); scale =
+// 1 / (N C valid 49); dX, dY: [planes, h, w]. One launch of the fused
+// kernel, with its dynamic shared memory (Bwd::kBytes, 58 KB) opted
+// into once a device: the current device, which the caller sets to the
+// tensors' card.
+extern "C" int san_ssim_bwd(const void* X, const void* Y, const void* gout,
+                            float scale, void* dX, void* dY, int64_t planes,
+                            int h, int w, void* stream) {
+  constexpr int kDevices = 64;
+  static std::atomic<bool> opted[kDevices];
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
   if (rc != 0) return rc;
-  ssim_bwd_scatter_kernel<<<tiles(h, w, planes), block, 0, s>>>(
-      (const float*)X, (const float*)Y, (const float*)coef,
-      (const float*)gout, scale, (float*)dX, (float*)dY, h, w, planes);
+  if (dev >= kDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev].load(std::memory_order_relaxed)) {
+    rc = (int)cudaFuncSetAttribute(ssim_bwd_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   Bwd::kBytes);
+    if (rc != 0) return rc;
+    opted[dev].store(true, std::memory_order_relaxed);
+  }
+  ssim_bwd_kernel<<<tiles(h, w, planes), kBwdThreads, Bwd::kBytes,
+                    (cudaStream_t)stream>>>(
+      (const float*)X, (const float*)Y, (const float*)gout, scale, (float*)dX,
+      (float*)dY, h, w);
   return (int)cudaGetLastError();
 }

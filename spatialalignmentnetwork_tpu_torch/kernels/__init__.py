@@ -48,12 +48,18 @@ def on_card(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def stream(t) -> int:
-    """The handle of PyTorch's current stream on `t`'s card."""
+def launch(name: str, launcher, like, *args):
+    """Launch a kernel on the card of tensor `like`: inside
+    `torch.cuda.device(like.device)`, call `launcher(*args, stream)` with
+    that card's current stream, and pass its return code to
+    `check_launch`. Every launch goes through here, so a kernel runs (and a
+    C entry point reads its per-device state) on its tensors' card whatever
+    the current device is."""
     import torch
 
-    with torch.cuda.device(t.device):
-        return torch.cuda.current_stream().cuda_stream
+    with torch.cuda.device(like.device):
+        rc = launcher(*args, torch.cuda.current_stream().cuda_stream)
+        check_launch(name, rc)
 
 
 def check_f32_cuda(name: str, *tensors):

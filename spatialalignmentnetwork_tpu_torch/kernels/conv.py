@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.window import f32_convs
-from . import check_launch, load, on_card, stream
+from . import launch, load, on_card
 
 NAME = "conv3x3"
 NAME_BF16 = "conv3x3_bf16"
@@ -105,9 +105,8 @@ def conv3x3_cuda(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
         raise ValueError("the conv3x3 kernel takes fewer than 2^31 elements a tensor")
     out = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
     bf16 = x.dtype == torch.bfloat16
-    rc = _launcher()(x.data_ptr(), w3.data_ptr(), out.data_ptr(), n, h, wd, cin,
-                     cout, int(bf16), stream(x))
-    check_launch(NAME_BF16 if bf16 else NAME, rc)
+    launch(NAME_BF16 if bf16 else NAME, _launcher(), x,
+           x.data_ptr(), w3.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, int(bf16))
     return out
 
 

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from . import check_launch, load, on_card, stream
+from . import launch, load, on_card
 
 NAME = "grid_sample_fwd"
 DGRID = "grid_sample_bwd_dgrid"
@@ -220,7 +220,7 @@ def _check_gout(gout: torch.Tensor, size, grid: torch.Tensor):
 
 def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor,
                      padding_mode: str = "zeros") -> torch.Tensor:
-    """Launch the forward kernel on the current stream."""
+    """Launch the forward kernel on the image's card and its current stream."""
     _check(img, grid, padding_mode)
     _check_cuda(img.shape, grid, img)
     if img.dtype not in (torch.float32, torch.bfloat16):
@@ -228,12 +228,10 @@ def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor,
     n, c, h, w = img.shape
     _, ho, wo, _ = grid.shape
     out = torch.empty((n, c, ho, wo), dtype=img.dtype, device=img.device)
-    rc = _launcher("san_grid_sample_fwd", 3, 8)(
-        img.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        n, c, h, w, ho, wo, PADDING_MODES[padding_mode],
-        int(img.dtype == torch.bfloat16), stream(img),
-    )
-    check_launch(NAME, rc)
+    launch(NAME, _launcher("san_grid_sample_fwd", 3, 8), img,
+           img.data_ptr(), grid.data_ptr(), out.data_ptr(),
+           n, c, h, w, ho, wo, PADDING_MODES[padding_mode],
+           int(img.dtype == torch.bfloat16))
     return out
 
 
@@ -249,11 +247,9 @@ def grid_sample_bwd_dgrid_cuda(img: torch.Tensor, grid: torch.Tensor,
     n, c, h, w = img.shape
     _, ho, wo, _ = grid.shape
     dgrid = torch.empty((n, ho, wo, 2), dtype=torch.float32, device=grid.device)
-    rc = _launcher("san_grid_sample_bwd_dgrid", 4, 7)(
-        img.data_ptr(), grid.data_ptr(), gout.data_ptr(), dgrid.data_ptr(),
-        n, c, h, w, ho, wo, PADDING_MODES[padding_mode], stream(grid),
-    )
-    check_launch(DGRID, rc)
+    launch(DGRID, _launcher("san_grid_sample_bwd_dgrid", 4, 7), grid,
+           img.data_ptr(), grid.data_ptr(), gout.data_ptr(), dgrid.data_ptr(),
+           n, c, h, w, ho, wo, PADDING_MODES[padding_mode])
     return dgrid
 
 
@@ -268,11 +264,9 @@ def grid_sample_bwd_dimg_cuda(grid: torch.Tensor, gout: torch.Tensor, size,
     n, c, h, w = size
     _, ho, wo, _ = grid.shape
     dimg = torch.zeros(size, dtype=torch.float32, device=grid.device)
-    rc = _launcher("san_grid_sample_bwd_dimg", 3, 7)(
-        grid.data_ptr(), gout.data_ptr(), dimg.data_ptr(),
-        n, c, h, w, ho, wo, PADDING_MODES[padding_mode], stream(grid),
-    )
-    check_launch(DIMG, rc)
+    launch(DIMG, _launcher("san_grid_sample_bwd_dimg", 3, 7), grid,
+           grid.data_ptr(), gout.data_ptr(), dimg.data_ptr(),
+           n, c, h, w, ho, wo, PADDING_MODES[padding_mode])
     return dimg
 
 

@@ -21,7 +21,7 @@ import functools
 import torch
 
 from ..ops.window import window_sum2d
-from . import check_f32_cuda, check_launch, load, on_card, stream, upstream
+from . import check_f32_cuda, launch, load, on_card, upstream
 
 FWD = "lncc_fwd"
 BWD = "lncc_bwd"
@@ -102,8 +102,8 @@ def check(I: torch.Tensor, J: torch.Tensor, win: int):
 def _check_cuda(*tensors: torch.Tensor):
     check_f32_cuda("lncc", *tensors)
     n, c, h, w = tensors[0].shape
-    if 5 * n * c * h * w >= 2**31:
-        raise ValueError("lncc kernels take fewer than 2^31 / 5 elements")
+    if n * c * h * w >= 2**31:
+        raise ValueError("lncc kernels take fewer than 2^31 elements")
     if n * c > 65535:
         raise ValueError("lncc kernels take at most 65535 planes")
 
@@ -119,38 +119,33 @@ def lncc_fwd_cuda(I: torch.Tensor, J: torch.Tensor, win: int = 9) -> torch.Tenso
     n, c, h, w = I.shape
     partial = torch.empty(n * c * _tiles(h, w), dtype=torch.float32, device=I.device)
     sums = torch.empty((n, c), dtype=torch.float32, device=I.device)
-    rc = _launcher("san_lncc_fwd")(
-        I.data_ptr(), J.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-        n * c, h, w, win, stream(I),
-    )
-    check_launch(FWD, rc)
+    launch(FWD, _launcher("san_lncc_fwd"), I,
+           I.data_ptr(), J.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+           n * c, h, w, win)
     return sums
 
 
 def lncc_bwd_cuda(I: torch.Tensor, J: torch.Tensor, gout: torch.Tensor,
                   win: int = 9):
-    """Launch the backward kernels; (dI, dJ) for the upstream gradient gout
-    (a 0-dim f32 tensor on the same card)."""
+    """Launch the fused backward kernel; (dI, dJ) for the upstream gradient
+    gout (a 0-dim f32 tensor on the same card). No scratch: the
+    coefficient maps stay in each block's shared memory."""
     check(I, J, win)
     _check_cuda(I, J)
     g = upstream("lncc", gout, I)
     n, c, h, w = I.shape
-    coef = torch.empty(5 * n * c * h * w, dtype=torch.float32, device=I.device)
     dI = torch.empty_like(I)
     dJ = torch.empty_like(J)
-    rc = _launcher("san_lncc_bwd")(
-        I.data_ptr(), J.data_ptr(), coef.data_ptr(), g.data_ptr(),
-        1.0 / (n * c * h * w), dI.data_ptr(), dJ.data_ptr(),
-        n * c, h, w, win, stream(I),
-    )
-    check_launch(BWD, rc)
+    launch(BWD, _launcher("san_lncc_bwd"), I,
+           I.data_ptr(), J.data_ptr(), g.data_ptr(), 1.0 / (n * c * h * w),
+           dI.data_ptr(), dJ.data_ptr(), n * c, h, w, win)
     return dI, dJ
 
 
 _ARGTYPES = {
     "san_lncc_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
-    "san_lncc_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_float]
+    "san_lncc_bwd": [ctypes.c_void_p] * 3 + [ctypes.c_float]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
 }

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from . import check_f32_cuda, check_launch, load, on_card, stream, upstream
+from . import check_f32_cuda, launch, load, on_card, upstream
 
 FWD = "mi_fwd"
 BWD = "mi_bwd"
@@ -198,12 +198,10 @@ def mi_fwd_cuda(I: torch.Tensor, J: torch.Tensor, bins: int = 64,
     stats = torch.empty((n, 2 * bins + bins * bins), dtype=torch.float32, device=dev)
     per = torch.empty(n, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    rc = _launcher("san_mi_fwd")(
-        I.data_ptr(), J.data_ptr(), partial.data_ptr(), stats.data_ptr(),
-        per.data_ptr(), loss.data_ptr(), n, m, bins, blocks,
-        *_parzen_args(bins, sigma, minv, maxv), stream(I),
-    )
-    check_launch(FWD, rc)
+    launch(FWD, _launcher("san_mi_fwd"), I,
+           I.data_ptr(), J.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+           per.data_ptr(), loss.data_ptr(), n, m, bins, blocks,
+           *_parzen_args(bins, sigma, minv, maxv))
     return loss, stats
 
 
@@ -223,12 +221,10 @@ def mi_bwd_cuda(I: torch.Tensor, J: torch.Tensor, stats: torch.Tensor,
     coef = torch.empty(n * _COEF, dtype=torch.float32, device=I.device)
     dI = torch.empty_like(I)
     dJ = torch.empty_like(J)
-    rc = _launcher("san_mi_bwd")(
-        I.data_ptr(), J.data_ptr(), stats.data_ptr(), coef.data_ptr(),
-        g.data_ptr(), dI.data_ptr(), dJ.data_ptr(), n, m, bins,
-        *_parzen_args(bins, sigma, minv, maxv), 1.0 / (sigma * sigma), stream(I),
-    )
-    check_launch(BWD, rc)
+    launch(BWD, _launcher("san_mi_bwd"), I,
+           I.data_ptr(), J.data_ptr(), stats.data_ptr(), coef.data_ptr(),
+           g.data_ptr(), dI.data_ptr(), dJ.data_ptr(), n, m, bins,
+           *_parzen_args(bins, sigma, minv, maxv), 1.0 / (sigma * sigma))
     return dI, dJ
 
 

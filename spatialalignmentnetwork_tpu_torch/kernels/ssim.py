@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.window import window_sum2d
-from . import check_f32_cuda, check_launch, load, on_card, stream, upstream
+from . import check_f32_cuda, launch, load, on_card, upstream
 
 FWD = "ssim_fwd"
 BWD = "ssim_bwd"
@@ -112,7 +112,7 @@ def _check(X: torch.Tensor, Y: torch.Tensor):
 def _check_cuda(*tensors: torch.Tensor):
     check_f32_cuda("ssim", *tensors)
     n, c, h, w = tensors[0].shape
-    if n * c * h * w >= 2**31 or 4 * n * c * (h - WIN + 1) * (w - WIN + 1) >= 2**31:
+    if n * c * h * w >= 2**31:
         raise ValueError("ssim kernels take fewer than 2^31 elements")
     if n * c > 65535:
         raise ValueError("ssim kernels take at most 65535 planes")
@@ -129,39 +129,33 @@ def ssim_fwd_cuda(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     n, c, h, w = X.shape
     partial = torch.empty(n * c * _tiles(h, w), dtype=torch.float32, device=X.device)
     sums = torch.empty((n, c), dtype=torch.float32, device=X.device)
-    rc = _launcher("san_ssim_fwd")(
-        X.data_ptr(), Y.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-        n * c, h, w, stream(X),
-    )
-    check_launch(FWD, rc)
+    launch(FWD, _launcher("san_ssim_fwd"), X,
+           X.data_ptr(), Y.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+           n * c, h, w)
     return sums
 
 
 def ssim_bwd_cuda(X: torch.Tensor, Y: torch.Tensor, gout: torch.Tensor):
-    """Launch the backward kernels; (dX, dY) for the upstream gradient gout
-    (a 0-dim f32 tensor on the same card)."""
+    """Launch the fused backward kernel; (dX, dY) for the upstream gradient
+    gout (a 0-dim f32 tensor on the same card). No scratch: the
+    coefficient maps stay in each block's shared memory."""
     _check(X, Y)
     _check_cuda(X, Y)
     g = upstream("ssim", gout, X)
     n, c, h, w = X.shape
-    coef = torch.empty(4 * n * c * (h - WIN + 1) * (w - WIN + 1),
-                       dtype=torch.float32, device=X.device)
     dX = torch.empty_like(X)
     dY = torch.empty_like(Y)
     valid = (h - WIN + 1) * (w - WIN + 1)
-    rc = _launcher("san_ssim_bwd")(
-        X.data_ptr(), Y.data_ptr(), coef.data_ptr(), g.data_ptr(),
-        1.0 / (n * c * valid * WIN * WIN), dX.data_ptr(), dY.data_ptr(),
-        n * c, h, w, stream(X),
-    )
-    check_launch(BWD, rc)
+    launch(BWD, _launcher("san_ssim_bwd"), X,
+           X.data_ptr(), Y.data_ptr(), g.data_ptr(), 1.0 / (n * c * valid * WIN * WIN),
+           dX.data_ptr(), dY.data_ptr(), n * c, h, w)
     return dX, dY
 
 
 _ARGTYPES = {
     "san_ssim_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_void_p],
-    "san_ssim_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_float]
+    "san_ssim_bwd": [ctypes.c_void_p] * 3 + [ctypes.c_float]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p],
 }

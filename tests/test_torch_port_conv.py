@@ -10,8 +10,10 @@ Inputs come from numpy seeds. Tolerances:
     one f32 sum once, and the order of that sum may flip the last bit.
 """
 
+import contextlib
 import os
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -203,7 +205,9 @@ def test_mocked_launch_routes_by_dtype_and_counts(monkeypatch):
         return rc[0]
 
     monkeypatch.setattr(kconv, "on_card", lambda t: True)
-    monkeypatch.setattr(kconv, "stream", lambda t: 1234)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=1234))
     monkeypatch.setattr(kconv, "_launcher", lambda: launcher)
     kernels.reset_launches()
     for dtype, flag, name in ((torch.bfloat16, 1, kconv.NAME_BF16),

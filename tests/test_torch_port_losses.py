@@ -24,9 +24,11 @@ Tolerances:
     forwards: as against the Pallas kernels.
 """
 
+import contextlib
 import math
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -135,6 +137,45 @@ def test_window_convolutions_pin_f32_and_restore_the_flag():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@pytest.mark.parametrize("loss", ["lncc", "mi"])
+def test_ms_losses_run_every_conv_and_its_backward_without_tf32(loss):
+    """The pyramid's backward convolutions run when autograd gets to them,
+    after the window helpers have returned: with the caller's TF32 flag on,
+    every aten convolution and convolution backward of the ms loss, forward
+    and backward, must still see it off, and the flag is the caller's
+    after both passes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.convolution.default,
+                        torch.ops.aten.convolution_backward.default):
+                self.seen.append((func.__name__, torch.backends.cudnn.allow_tf32))
+            return func(*args, **(kwargs or {}))
+
+    fn = {"lncc": tlncc.ms_lncc_loss, "mi": tmi.ms_mi_loss}[loss]
+    I, J = _pair(np.random.default_rng(27), (2, 1, 32, 32))
+    ti = torch.from_numpy(I).requires_grad_()
+    tj = torch.from_numpy(J).requires_grad_()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with Recorder() as rec:
+            fn(ti, tj).backward()
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    backward = [flag for name, flag in rec.seen if name.startswith("convolution_backward")]
+    # 2 coarser scales x 2 images x (smooth, pool)
+    assert len(backward) == 8, rec.seen
+    assert [flag for _, flag in rec.seen] == [False] * len(rec.seen)
+    assert ti.grad is not None and tj.grad is not None
+
+
 # ------------------------------------------------------------ LNCC
 def _near_flat(rng, shape):
     """Exact-zero background (as in MRI), an exactly constant plateau and a
@@ -187,6 +228,83 @@ def test_lncc_matches_jnp_and_pallas(case):
     for t, j in zip((I_var, J_var, cross), jlncc.compute_local_sums(jnp.asarray(I), jnp.asarray(J), win)):
         # window sums of 81 products, of order 10: rtol 1e-5 / atol 1e-5
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-5)
+
+
+def _in_order(v, n, win, dim):
+    """sum_{d < win} of v's slices [d, d + n) along `dim`, added in order
+    (the CUDA kernels' separable passes)."""
+    acc = v.narrow(dim, 0, n)
+    for d in range(1, win):
+        acc = acc + v.narrow(dim, d, n)
+    return acc
+
+
+def _lncc_bwd_tiled(I, J, gout, win, tile):
+    """The fused CUDA backward's tiling, in torch: a tile of `tile` x `tile`
+    outputs stages I and J over itself plus 2 (win/2) a side (zeros
+    outside the plane), takes the five window sums at its centres plus
+    win/2 a side (rows, then columns, each in order), zeroes the
+    coefficients at centres outside the plane, box-sums the five maps over
+    its pixels and forms dI, dJ, tile by tile."""
+    n, c, h, w = I.shape
+    p = win // 2
+    S, C, ws = tile + 4 * p, tile + 2 * p, win * win
+    edge = (2 * p, 2 * p + tile, 2 * p, 2 * p + tile)  # zeros past every tile
+    Ip, Jp = torch.nn.functional.pad(I, edge), torch.nn.functional.pad(J, edge)
+    inside = torch.nn.functional.pad(torch.ones_like(I), edge)
+    s = gout * (-1.0 / (n * c * h * w))
+    dI, dJ = torch.zeros_like(I), torch.zeros_like(J)
+    for r0 in range(0, h, tile):
+        for c0 in range(0, w, tile):
+            # staged (r, c) is pixel (r0 - 2p + r, c0 - 2p + c)
+            x = Ip[..., r0:r0 + S, c0:c0 + S]
+            y = Jp[..., r0:r0 + S, c0:c0 + S]
+            I_s, J_s, I2, J2, IJ = (_in_order(_in_order(v, C, win, 3), C, win, 2)
+                                    for v in (x, y, x * x, y * y, x * y))
+            cross = IJ - I_s * J_s / ws
+            I_var = I2 - I_s * I_s / ws
+            J_var = J2 - J_s * J_s / ws
+            D = I_var * J_var + klncc.EPS
+            Pc = 2.0 * cross / D
+            cc_over_D = (cross * cross) / (D * D)
+            Pv_I, Pv_J = -cc_over_D * J_var, -cc_over_D * I_var
+            G_Is = Pc * (-J_s / ws) + Pv_I * (-2.0 * I_s / ws)
+            G_Js = Pc * (-I_s / ws) + Pv_J * (-2.0 * J_s / ws)
+            # centre (i, j) is pixel (r0 - p + i, c0 - p + j)
+            live = inside[..., r0 + p:r0 + p + C, c0 + p:c0 + p + C]
+            b = [_in_order(_in_order(g * live, tile, win, 3), tile, win, 2)
+                 for g in (G_Is, G_Js, Pv_I, Pv_J, Pc)]
+            xt = x[..., 2 * p:2 * p + tile, 2 * p:2 * p + tile]
+            yt = y[..., 2 * p:2 * p + tile, 2 * p:2 * p + tile]
+            tI = s * (b[0] + 2.0 * xt * b[2] + yt * b[4])
+            tJ = s * (b[1] + 2.0 * yt * b[3] + xt * b[4])
+            hh, ww = min(tile, h - r0), min(tile, w - c0)
+            dI[..., r0:r0 + hh, c0:c0 + ww] = tI[..., :hh, :ww]
+            dJ[..., r0:r0 + hh, c0:c0 + ww] = tJ[..., :hh, :ww]
+    return dI, dJ
+
+
+@pytest.mark.parametrize("shape, win", [
+    ((1, 2, 45, 37), 9), ((2, 1, 7, 7), 9), ((1, 1, 45, 37), 1),
+    ((1, 1, 45, 37), 5), ((1, 1, 45, 37), 15), ((1, 1, 64, 64), 9)])
+def test_lncc_fused_tiling_matches_the_plain_backward(shape, win):
+    """The fused CUDA backward's tiles (klncc.TILE a side, the halo rules,
+    zero fill outside the plane, zero coefficients at centres outside it)
+    give the plain closed form's dI, dJ, in float64 to 1e-6 of max, on
+    planes the tile does not divide, a plane below the window and windows
+    1 to MAX_WIN; the CUDA source's tile and largest window are these."""
+    src = open(os.path.join(REPO, "spatialalignmentnetwork_tpu_torch", "csrc",
+                            "lncc.cu")).read()
+    assert f"constexpr int kTile = {klncc.TILE};" in src
+    assert f"constexpr int kMaxWin = {klncc.MAX_WIN};" in src
+    rng = np.random.default_rng(28)
+    I = torch.from_numpy(rng.random(shape))
+    J = 0.6 * I + 0.4 * torch.from_numpy(rng.random(shape))
+    g = torch.tensor(0.7, dtype=torch.float64)
+    got = _lncc_bwd_tiled(I, J, g, win, klncc.TILE)
+    want = klncc.lncc_bwd_plain(I, J, g, win)
+    _assert_grads([t.numpy() for t in got], [t.numpy() for t in want], f"win {win}",
+                  atol_of_max=1e-6)
 
 
 # ------------------------------------------------------------ MI
@@ -461,7 +579,9 @@ def test_mi_fwd_grid_and_partials_follow_one_rule(monkeypatch, n, m, sms, blocks
         multi_processor_count = sms
 
     monkeypatch.setattr(kmi, "_check_cuda", lambda *t: None)
-    monkeypatch.setattr(kmi, "stream", lambda t: 0)
+    monkeypatch.setattr(kmi.torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(kmi.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(kmi.torch.cuda, "get_device_properties", lambda dev: Props())
     monkeypatch.setattr(kmi.torch, "empty", empty)
     monkeypatch.setattr(kmi, "_launcher", lambda symbol: lambda *a: args.append(a) or 0)

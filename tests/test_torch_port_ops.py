@@ -11,6 +11,8 @@ order); gradients rtol 1e-4 with atol 1e-5 (grid sample) and 1e-6 (SSIM,
 whose gradients are of order 1e-3).
 """
 
+import os
+
 import numpy as np
 import pytest
 import jax
@@ -410,3 +412,205 @@ def test_backward_and_ssim_wrappers_check_inputs():
     kernels.reset_launches()
     ssimloss(torch.rand((1, 1, 8, 8)), torch.rand((1, 1, 8, 8)))
     assert kernels.LAUNCHES[kssim.FWD] == 0  # the plain version is no launch
+
+
+# ------------------------------------------------------------ launch device
+class _OnCard1(torch.Tensor):
+    """A CPU tensor that claims to lie on cuda:1: the wrappers read its
+    `.device`, the stand-ins below allocate their outputs on the CPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+
+@pytest.fixture
+def card1(monkeypatch):
+    """Stand-ins for a machine whose current device is 0: torch.cuda.device
+    switches a recorded current device, each device's current stream is
+    100 + its index, allocations on any device land on the CPU as
+    `_OnCard1`, and every launcher of the five sources records (symbol,
+    the current device at the launch, its arguments) and returns 0."""
+    import types
+
+    from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+    from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
+
+    current = [0]
+    seen = []
+
+    class Device:
+        def __init__(self, device):
+            self.index = torch.device(device).index
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.index
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    def allocator(real):
+        def alloc(*shape, device=None, **kw):
+            return real(*shape, **kw).as_subclass(_OnCard1)
+        return alloc
+
+    def launcher_of(mod):
+        def get(*key):
+            def run(*args):
+                seen.append((key[0] if key else mod.SOURCE, current[0], args))
+                return 0
+            return run
+        return get
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=100 + current[0]))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch, "empty", allocator(torch.empty))
+    monkeypatch.setattr(torch, "zeros", allocator(torch.zeros))
+    for mod in (kgs, kssim, klncc, kmi, kconv):
+        monkeypatch.setattr(mod, "_launcher", launcher_of(mod))
+    kernels.reset_launches()
+    yield seen, lambda t: t.contiguous().as_subclass(_OnCard1)
+    kernels.reset_launches()
+
+
+def test_every_launch_runs_on_its_tensors_card(card1):
+    """With tensors on cuda:1 while the current device is 0, every launch
+    of grid_sample.cu, ssim.cu, lncc.cu, mi.cu and conv.cu runs inside
+    torch.cuda.device(cuda:1), on cuda:1's current stream, so that a C
+    entry point's per-device state (MI's SM count, the conv's and the
+    fused backwards' shared-memory opt-in) is cuda:1's too."""
+    from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+    from spatialalignmentnetwork_tpu_torch.kernels import mi as kmi
+
+    seen, on1 = card1
+    rng = np.random.default_rng(16)
+    img = on1(torch.from_numpy(rng.random((2, 1, 16, 16)).astype(np.float32)))
+    grid = on1(torch.from_numpy(_grids(2, 16, 16)["smooth"]))
+    g = on1(torch.ones(()))
+    assert img.device == torch.device("cuda", 1)
+    kgs.grid_sample_cuda(img, grid)
+    kgs.grid_sample_bwd_dgrid_cuda(img, grid, img)
+    kgs.grid_sample_bwd_dimg_cuda(grid, img, img.shape)
+    kssim.ssim_fwd_cuda(img, img)
+    kssim.ssim_bwd_cuda(img, img, g)
+    klncc.lncc_fwd_cuda(img, img)
+    klncc.lncc_bwd_cuda(img, img, g)
+    stats = kmi.mi_fwd_cuda(img, img)[1]
+    kmi.mi_bwd_cuda(img, img, stats, g)
+    x = on1(torch.rand((2, 4, 4, 3)))
+    kconv.conv3x3_cuda(x, on1(torch.rand((3, 3, 3, 2))))
+    kconv.conv3x3_cuda(x.bfloat16(), on1(torch.rand((3, 3, 3, 2)).bfloat16()))
+    assert [s for s, _, _ in seen] == [
+        "san_grid_sample_fwd", "san_grid_sample_bwd_dgrid", "san_grid_sample_bwd_dimg",
+        "san_ssim_fwd", "san_ssim_bwd", "san_lncc_fwd", "san_lncc_bwd",
+        "san_mi_fwd", "san_mi_bwd", "conv.cu", "conv.cu"]
+    for symbol, device, args in seen:
+        assert device == 1, f"{symbol} launched on device {device}"
+        assert args[-1] == 101, f"{symbol} on stream {args[-1]}"
+    assert sum(kernels.LAUNCHES.values()) == len(seen)
+
+
+@pytest.mark.parametrize("loss", ["ssim", "lncc"])
+def test_fused_backwards_pass_no_scratch(card1, loss):
+    """The fused backwards take no coefficient scratch: the C entry point
+    gets I, J (X, Y), g, dI, dJ and the stream as its only pointers, as
+    many arguments as its _ARGTYPES, in one launch."""
+    import ctypes
+
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+
+    seen, on1 = card1
+    mod = {"ssim": kssim, "lncc": klncc}[loss]
+    rng = np.random.default_rng(17)
+    x = on1(torch.from_numpy(rng.random((2, 1, 16, 12)).astype(np.float32)))
+    y = on1(torch.from_numpy(rng.random((2, 1, 16, 12)).astype(np.float32)))
+    g = on1(torch.ones(()))
+    dx, dy = getattr(mod, f"{loss}_bwd_cuda")(x, y, g)
+    ((symbol, _, args),) = seen
+    types = mod._ARGTYPES[symbol]
+    assert symbol == f"san_{loss}_bwd" and len(args) == len(types)
+    ptrs = [a for a, t in zip(args, types) if t is ctypes.c_void_p]
+    assert ptrs == [x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                    dy.data_ptr(), 101]
+    assert dict(kernels.LAUNCHES) == {mod.BWD: 1}
+
+
+def _ssim_bwd_tiled(X, Y, gout, tile):
+    """The fused CUDA backward's tiling, in torch: a tile of `tile` x `tile`
+    pixels stages X and Y over itself plus 6 a side both ways (zeros
+    outside the plane), takes the statistics of the (tile + 6)^2 windows
+    whose top-left corners lie in [r0 - 6, r0 + tile) (rows, then columns,
+    each in order), zeroes the G maps of windows outside the valid ones,
+    box-scatters the four maps over its pixels and forms dX, dY."""
+    n, c, h, w = X.shape
+    k, NP = kssim.WIN, kssim.WIN * kssim.WIN
+    S, C, cn = tile + 2 * (k - 1), tile + k - 1, NP / (NP - 1)
+    C1, C2 = 0.01**2, 0.03**2
+    edge = (k - 1, k - 1 + tile, k - 1, k - 1 + tile)
+    Xp, Yp = F.pad(X, edge), F.pad(Y, edge)
+    valid = torch.zeros_like(X)
+    valid[..., :h - k + 1, :w - k + 1] = 1.0
+    valid = F.pad(valid, edge)
+    scale = 1.0 / (n * c * (h - k + 1) * (w - k + 1) * NP)
+    s = -scale * gout
+    dX, dY = torch.zeros_like(X), torch.zeros_like(Y)
+
+    def in_order(v, m, dim):
+        acc = v.narrow(dim, 0, m)
+        for d in range(1, k):
+            acc = acc + v.narrow(dim, d, m)
+        return acc
+
+    for r0 in range(0, h, tile):
+        for c0 in range(0, w, tile):
+            # staged (r, c) is pixel (r0 - 6 + r, c0 - 6 + c)
+            x = Xp[..., r0:r0 + S, c0:c0 + S]
+            y = Yp[..., r0:r0 + S, c0:c0 + S]
+            ux, uy, uxx, uyy, uxy = (in_order(in_order(v, C, 3), C, 2) / NP
+                                     for v in (x, y, x * x, y * y, x * y))
+            A1 = 2 * ux * uy + C1
+            A2 = 2 * cn * (uxy - ux * uy) + C2
+            B1 = ux * ux + uy * uy + C1
+            B2 = cn * (uxx - ux * ux) + cn * (uyy - uy * uy) + C2
+            D = B1 * B2
+            S_ = A1 * A2 / D
+            sA1, sA2, sB1, sB2 = A2 / D, A1 / D, -S_ / B1, -S_ / B2
+            G = (sA1 * 2 * uy + sA2 * (-2 * cn * uy) + sB1 * 2 * ux + sB2 * (-2 * cn * ux),
+                 sA1 * 2 * ux + sA2 * (-2 * cn * ux) + sB1 * 2 * uy + sB2 * (-2 * cn * uy),
+                 sA2 * 2 * cn, sB2 * cn)
+            live = valid[..., r0:r0 + C, c0:c0 + C]  # window (i, j) at pixel (r0-6+i, c0-6+j)
+            b = [in_order(in_order(g * live, tile, 3), tile, 2) for g in G]
+            xt = x[..., k - 1:k - 1 + tile, k - 1:k - 1 + tile]
+            yt = y[..., k - 1:k - 1 + tile, k - 1:k - 1 + tile]
+            hh, ww = min(tile, h - r0), min(tile, w - c0)
+            dX[..., r0:r0 + hh, c0:c0 + ww] = (s * (b[0] + 2 * xt * b[3] + yt * b[2]))[..., :hh, :ww]
+            dY[..., r0:r0 + hh, c0:c0 + ww] = (s * (b[1] + 2 * yt * b[3] + xt * b[2]))[..., :hh, :ww]
+    return dX, dY
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 45, 37), (1, 1, 7, 7), (1, 2, 64, 70),
+                                   (1, 1, 38, 33)])
+def test_ssim_fused_tiling_matches_the_plain_backward(shape):
+    """The fused CUDA backward's tiles (kssim.TILE a side, the 6-pixel halo
+    both ways, zero fill outside the plane, zero G maps outside the valid
+    windows) give the plain closed form's dX, dY, in float64 to 1e-6 of
+    max, on planes the tile does not divide and the smallest plane; the
+    CUDA source's tile and window are these."""
+    src = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "spatialalignmentnetwork_tpu_torch", "csrc", "ssim.cu")).read()
+    assert f"constexpr int kTile = {kssim.TILE};" in src
+    assert f"constexpr int kWin = {kssim.WIN};" in src
+    rng = np.random.default_rng(18)
+    X = torch.from_numpy(rng.random(shape))
+    Y = X + 0.1 * torch.from_numpy(rng.standard_normal(shape))
+    g = torch.tensor(0.7, dtype=torch.float64)
+    got = _ssim_bwd_tiled(X, Y, g, kssim.TILE)
+    want = kssim.ssim_bwd_plain(X, Y, g)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
