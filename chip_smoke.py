@@ -25,9 +25,10 @@ failure:
      held to float64, its bits run to run and at ragged pixel counts from
      inputs that end where mapped memory ends (phases 2 and 3 for MI
      alone: `python3 -c "import chip_smoke; chip_smoke.mi_phases()"`); the
-     SSIM and LNCC backwards' bits run to run on every case and their
-     peak device memory (phases 2 and 3 for SSIM and LNCC alone, with the
-     backwards timed at 160 and 80 too and each launch's device time:
+     SSIM and LNCC forwards' and backwards' bits run to run on every case,
+     the LNCC forward on the phantoms against float64, and the backwards'
+     peak device memory (phases 2 and 3 for SSIM and LNCC alone, with all
+     four kernels timed at 160 and 80 too and each launch's device time:
      `python3 -c "import chip_smoke; chip_smoke.loss_phases()"`); the
      3x3 conv forward and input gradient, f32 and bf16, held
      to float64 on every conv of the ladder of phase 9 and on ragged
@@ -545,8 +546,12 @@ def check_ssim(rng):
     dev = torch.device("cuda")
     err = {"fwd": 0.0, "bwd": 0.0}
     one = torch.ones((), device=dev)
+    # the train shape, C = 2, a ragged plane, the smallest plane, the planes
+    # whose forward takes the shorter tiles (kernels.fwd_rows), and more
+    # tiles than the card holds forward blocks at once (each walks several)
     for shape in ((TRAIN_BATCH, 1, SHAPE, SHAPE), (TRAIN_BATCH, 2, SHAPE, SHAPE),
-                  (2, 1, 317, 301), (1, 1, 7, 7)):
+                  (2, 1, 317, 301), (1, 1, 7, 7), (TRAIN_BATCH, 1, SHAPE // 2, SHAPE // 2),
+                  (TRAIN_BATCH, 1, SHAPE // 4, SHAPE // 4), (16, 2, SHAPE, SHAPE)):
         X = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
         Y = (X + torch.from_numpy(
             0.1 * rng.standard_normal(shape).astype(np.float32)).to(dev)).contiguous()
@@ -557,6 +562,7 @@ def check_ssim(rng):
         e = abs(float(got.sum() - want.sum())) / valid  # on the loss
         if not e <= SSIM_LOSS_ATOL:
             raise AssertionError(f"ssim_fwd {shape}: loss differs by {e}")
+        same_bits("ssim_fwd", shape, (got,), (kssim.ssim_fwd_cuda(X, Y),))
         err["fwd"] = max(err["fwd"], e)
         dX, dY = kssim.ssim_bwd_cuda(X, Y, one)
         wX, wY = kssim.ssim_bwd_plain(X, Y, one)
@@ -568,7 +574,8 @@ def check_ssim(rng):
                          float((dY - wY).abs().max()))
         log(f"ssim {list(shape)}: loss |kernel-plain| {e:.3g} (tol "
             f"{SSIM_LOSS_ATOL}), dX/dY max|kernel-plain|/max|plain| {eb:.3g} "
-            f"(tol {SSIM_GRAD_TOL}); loss {1 - float(got.sum()) / valid:.6f}")
+            f"(tol {SSIM_GRAD_TOL}); loss {1 - float(got.sum()) / valid:.6f}; "
+            "forward and backward the same bits run to run")
 
     shape = (TRAIN_BATCH, 1, SHAPE, SHAPE)
     sets = []
@@ -621,11 +628,12 @@ def peak_mb(fn):
     return peak / 1e6
 
 
-def time_window_bwds(rng, side):
-    """ssim_bwd's and lncc_bwd's (win 9) device ms alone at [4, 1, side,
+def time_windows(rng, side):
+    """The SSIM and LNCC (win 9) kernels' device ms alone at [4, 1, side,
     side], on 20 sets of X and Y = 0.9 X + 0.05 (ms_lncc_loss's planes are
-    320, 160 and 80), beside their byte bound: X and Y read, dX and dY
-    written. Returns {name: ms}."""
+    320, 160 and 80), beside their byte bounds: the forwards read X and Y
+    and write a sum a plane, the backwards read X and Y and write dX and
+    dY. Returns {name: ms}."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
@@ -638,11 +646,54 @@ def time_window_bwds(rng, side):
     for _ in range(20):
         X = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
         sets.append((X, (X * 0.9 + 0.05).contiguous(), one))
-    ms, times = time_all({"ssim_bwd": kssim.ssim_bwd_cuda,
+    ms, times = time_all({"ssim_fwd": lambda x, y, g: kssim.ssim_fwd_cuda(x, y),
+                          "lncc_fwd": lambda x, y, g: klncc.lncc_fwd_cuda(x, y),
+                          "ssim_bwd": kssim.ssim_bwd_cuda,
                           "lncc_bwd": klncc.lncc_bwd_cuda}, sets)
-    nbytes = 16 * int(np.prod(shape)) + 4
-    log(f"window backwards alone {list(shape)}: {times} ms; byte bound "
-        f"{bound(nbytes, 0)[0]:.5f} ms")
+    px = int(np.prod(shape))
+    log(f"window kernels alone {list(shape)}: {times} ms; byte bounds: forwards "
+        f"{bound(8 * px + 4 * shape[0], 0)[0]:.5f} ms, backwards "
+        f"{bound(16 * px + 4, 0)[0]:.5f} ms")
+    return ms
+
+
+def time_fwd_rows(rng, side):
+    """The SSIM and LNCC (win 9) forwards' device ms at [4, 1, side, side]
+    at each tile height of kernels.FWD_ROWS, beside the one that
+    kernels.fwd_rows picks: the measurement behind the rule. Returns
+    {(name, rows): ms}."""
+    from unittest import mock
+
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+    from spatialalignmentnetwork_tpu_torch.kernels import ssim as kssim
+
+    dev = torch.device("cuda")
+    shape = (TRAIN_BATCH, 1, side, side)
+    sets = []
+    for _ in range(20):
+        X = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        sets.append((X, (X * 0.9 + 0.05).contiguous()))
+
+    def at(mod, fn, th):
+        def run(x, y):
+            with mock.patch.object(mod, "fwd_rows", lambda *a: th):
+                return fn(x, y)
+        return run
+
+    fns = {}
+    for th in kernels.FWD_ROWS:
+        fns[("ssim_fwd", th)] = at(kssim, kssim.ssim_fwd_cuda, th)
+        fns[("lncc_fwd", th)] = at(klncc, klncc.lncc_fwd_cuda, th)
+    ms, _ = time_all(fns, sets)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    picked = {"ssim_fwd": kernels.fwd_rows(TRAIN_BATCH, side - 6, side - 6, sms),
+              "lncc_fwd": kernels.fwd_rows(TRAIN_BATCH, side, side, sms)}
+    log(f"forwards by tile rows {list(shape)}: " + ", ".join(
+        f"{name} {th}: {t:.5f} ms" for (name, th), t in ms.items())
+        + f"; fwd_rows picks {picked}")
     return ms
 
 
@@ -678,12 +729,23 @@ def check_lncc(rng):
     dev = torch.device("cuda")
     err = {"fwd": 0.0, "bwd": 0.0}
     one = torch.ones((), device=dev)
+    # the path's shape and window, C = 2, a ragged plane, a plane below the
+    # window, windows 5, 15 and 1, ms_lncc_loss's smaller planes, whose
+    # forward takes the shorter tiles (kernels.fwd_rows), and more tiles
+    # than the card holds forward blocks at once at win 15 after win 9
+    # (each block walks several). At win 1 every window is flat (I_var and
+    # J_var are rounding noise), so only the forward is held there.
     cases = [((TRAIN_BATCH, 1, SHAPE, SHAPE), 9, "phantoms"),
              ((TRAIN_BATCH, 1, SHAPE, SHAPE), 9, "random"),
              ((TRAIN_BATCH, 2, SHAPE, SHAPE), 9, "random"),
              ((2, 1, 317, 301), 9, "random"),
              ((1, 1, 7, 7), 9, "random"),
-             ((TRAIN_BATCH, 1, SHAPE, SHAPE), 5, "random")]
+             ((TRAIN_BATCH, 1, SHAPE, SHAPE), 5, "random"),
+             ((2, 1, 45, 37), 15, "random"),
+             ((2, 1, 45, 37), 1, "random"),
+             ((TRAIN_BATCH, 1, SHAPE // 2, SHAPE // 2), 9, "random"),
+             ((TRAIN_BATCH, 1, SHAPE // 4, SHAPE // 4), 9, "random"),
+             ((16, 2, SHAPE, SHAPE), 15, "random")]
     for shape, win, kind in cases:
         if kind == "phantoms":
             I, J = (t.to(dev) for t in registration_pair(rng, shape[0], shape[2]))
@@ -697,7 +759,18 @@ def check_lncc(rng):
         e = abs(float(got.sum() - want.sum())) / px  # on the loss
         if not e <= LNCC_LOSS_ATOL:
             raise AssertionError(f"lncc_fwd {shape} win {win} {kind}: loss differs by {e}")
+        same_bits(f"lncc_fwd win {win} {kind}", shape, (got,),
+                  (klncc.lncc_fwd_cuda(I, J, win),))
         err["fwd"] = max(err["fwd"], e)
+        if kind == "phantoms":
+            f64 = float(klncc.lncc_fwd_plain(I.double(), J.double(), win).sum())
+            log(f"lncc_fwd {kind} loss against float64: kernel "
+                f"{abs(float(got.sum()) - f64) / px:.3g}, plain f32 "
+                f"{abs(float(want.sum()) - f64) / px:.3g}")
+        if win == 1:
+            log(f"lncc {list(shape)} win 1 {kind}: loss |kernel-plain| {e:.3g} (tol "
+                f"{LNCC_LOSS_ATOL}); the forward the same bits run to run")
+            continue
         dI, dJ = klncc.lncc_bwd_cuda(I, J, one, win)
         wI, wJ = klncc.lncc_bwd_plain(I, J, one, win)
         same_bits(f"lncc_bwd win {win} {kind}", shape, (dI, dJ),
@@ -716,7 +789,8 @@ def check_lncc(rng):
                          float((dJ - wJ).abs().max()))
         log(f"lncc {list(shape)} win {win} {kind}: loss |kernel-plain| {e:.3g} "
             f"(tol {LNCC_LOSS_ATOL}), dI/dJ max|kernel-plain|/max|plain| {eb:.3g} "
-            f"(tol {tol}); loss {-float(got.sum()) / px:.6f}")
+            f"(tol {tol}); loss {-float(got.sum()) / px:.6f}; forward and backward "
+            "the same bits run to run")
 
     shape = (TRAIN_BATCH, 1, SHAPE, SHAPE)
     sets = []
@@ -1748,11 +1822,14 @@ def mi_phases():
 LOSS_ENTRIES = ("ssim_fwd", "ssim_bwd", "lncc_fwd", "lncc_bwd")
 
 
-def profile_losses(iters=10):
-    """Device us a launch of each SSIM and LNCC kernel (torch.profiler),
-    over `iters` calls of each forward and backward at [4,1,320,320] (LNCC
-    at win 9): how each entry point's time splits over its launches. Fails
-    unless each of LOSS_ENTRIES shows a launch."""
+def profile_losses(fused_forwards=True, iters=10):
+    """Device us a launch of each SSIM and LNCC kernel and memset
+    (torch.profiler), over `iters` calls of each forward and backward at
+    [4,1,320,320] (LNCC at win 9), each entry point profiled alone: how
+    its time splits over its launches, and how many it makes a call. Fails
+    unless each of LOSS_ENTRIES shows a launch and, with `fused_forwards`
+    (false for a tree whose forwards still take two launches), each
+    forward makes one launch a call and no memset."""
     import re
 
     import torch
@@ -1765,35 +1842,46 @@ def profile_losses(iters=10):
     X = torch.from_numpy(rng.random((TRAIN_BATCH, 1, SHAPE, SHAPE)).astype(np.float32)).cuda()
     Y = (X * 0.9 + 0.05).contiguous()
     one = torch.ones((), device=X.device)
-    calls = (lambda: kssim.ssim_fwd_cuda(X, Y), lambda: kssim.ssim_bwd_cuda(X, Y, one),
-             lambda: klncc.lncc_fwd_cuda(X, Y), lambda: klncc.lncc_bwd_cuda(X, Y, one))
-    for call in calls:
+    calls = {"ssim_fwd": lambda: kssim.ssim_fwd_cuda(X, Y),
+             "ssim_bwd": lambda: kssim.ssim_bwd_cuda(X, Y, one),
+             "lncc_fwd": lambda: klncc.lncc_fwd_cuda(X, Y),
+             "lncc_bwd": lambda: klncc.lncc_bwd_cuda(X, Y, one)}
+    out, per_call = {}, {}
+    for entry, call in calls.items():
         call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            for call in calls:
-                call()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        name = re.search(r"\b((?:ssim|lncc)_\w+_kernel)(?:<\d+>)?\(", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and name:
-            out[name.group(1)] = e.device_time
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        per_call[entry] = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = re.search(r"\b((?:ssim|lncc)_\w+_kernel)(?:<[\d, ]+>)?\(", e.key)
+            key = name.group(1) if name else ("memset" if "memset" in e.key.lower() else None)
+            if key:
+                out[f"{entry}: {key}"] = e.device_time
+                per_call[entry][key] = e.count / iters
     log(f"ssim and lncc kernels, device us a launch over {iters} calls "
-        f"[4,1,320,320]: {out}")
-    missing = [k for k in LOSS_ENTRIES if not any(n.startswith(k) for n in out)]
+        f"[4,1,320,320]: {out}; launches a call: {per_call}")
+    missing = [k for k in LOSS_ENTRIES if not any(n.startswith(k) for n in per_call[k])]
     if missing:
         raise AssertionError(f"no launch in the trace for {missing}")
+    if fused_forwards:
+        for k in ("ssim_fwd", "lncc_fwd"):
+            if sum(per_call[k].values()) != 1:
+                raise AssertionError(f"{k}: {per_call[k]} a call, not one launch")
     return out
 
 
-def loss_phases():
+def loss_phases(fused_forwards=True):
     """The SSIM and LNCC kernels' phases alone (the build check of ssim.cu
-    and lncc.cu, the kernels against their plain versions with the
-    backwards' bits run to run, their times at 320² and the backwards' at
-    160² and 80², and each launch's share), for work on those kernels; the
-    whole run is `main`. Returns the process's exit code."""
+    and lncc.cu, the kernels against their plain versions with their bits
+    run to run, their times at 320², 160² and 80², the forwards' at each
+    tile height, and each launch's share), for work on those kernels; the
+    whole run is `main`. Run from a tree whose forwards take two launches
+    with `fused_forwards=False`. Returns the process's exit code."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1806,8 +1894,11 @@ def loss_phases():
     for e in (*check_ssim(rng), *check_lncc(rng)):
         log(json.dumps(e))
     for side in (SHAPE // 2, SHAPE // 4):
-        time_window_bwds(rng, side)
-    profile_losses()
+        time_windows(rng, side)
+    if fused_forwards:
+        for side in (SHAPE, SHAPE // 2, SHAPE // 4):
+            time_fwd_rows(rng, side)
+    profile_losses(fused_forwards)
     return 0
 
 
@@ -1830,7 +1921,7 @@ def main():
     entries = [check_grid_sample(rng), *check_grid_sample_bwd(rng), *check_ssim(rng),
                *check_lncc(rng), *check_mi(rng)]
     for side in (SHAPE // 2, SHAPE // 4):  # ms_lncc_loss's smaller levels
-        time_window_bwds(rng, side)
+        time_windows(rng, side)
     conv_err = check_conv(rng)
     main_paths = [check_serving(rng), check_train(rng)]
     autograd = check_autograd(rng)

@@ -5,21 +5,25 @@
 // `_lncc_sum_kernel` (pallas_call at :57) and the backward `_backward` /
 // `_lncc_bwd_kernel` (pallas_call at :117). The TPU kernels hold one whole
 // (sample, channel) plane in VMEM per program, which here would be only
-// N*C blocks for 132 SMs; so a plane is cut into 32 x 32 tiles with a
-// win/2 halo (zero outside the plane: SAME padding), many blocks a plane.
+// N*C blocks for 132 SMs; so a plane is cut into tiles with a win/2 halo
+// (zero outside the plane: SAME padding), many blocks a plane.
 //
 // LNCC as the reference's loss (lnccloss.py:7-34): win x win windows (odd
 // win up to kMaxWin; the reference uses 9), zero-padded SAME, cc =
 // cross^2 / (I_var J_var + 1e-5), loss = -sum(cc) / (N C H W). f32
 // throughout.
 //
-// lncc_fwd: each block stages its I and J tile in shared memory, takes the
-// five window sums separably (along rows, then along columns, each in
-// order, as the Pallas kernel does), forms cc in registers with the
-// forward's expanded formula (cross = IJ - u_J I_s - u_I J_s + u_I u_J ws)
-// and reduces it to one partial per block in a fixed order. A second
-// launch sums each plane's partials in a fixed order, so the loss is the
-// same on every run (no float atomics).
+// lncc_fwd: one cooperative launch. Each block takes TH x 32 output tiles
+// (TH 32, 16 or 8, the shorter tiles only where the planes are too few
+// and small for 32), stages I and J over each plus win/2 a side by
+// cp.async, takes the five window sums separably (rows, then columns,
+// each in order, as the Pallas kernel does; window.cuh), forms cc in
+// registers with the forward's expanded formula (cross = IJ - u_J I_s -
+// u_I J_s + u_I u_J ws) and sums it over the block in a fixed order into
+// the tile's partial. After a grid-wide barrier, blocks sum the planes'
+// partials in tile order, so the loss is the same on every run (no float
+// atomics). The window and the tile's rows are template arguments, so
+// every sum unrolls and shared memory is sized for the window in use.
 //
 // lncc_bwd: the closed form of `_lncc_bwd_kernel` (:80-110), with its
 // cross = IJ - I_s J_s / ws. Per centre, the coefficient maps
@@ -43,174 +47,88 @@
 // 320]) the forward must read 3.3 MB: about 0.98 us at 3.35 TB/s (about
 // 106 f32 operations a pixel are 0.65 us at 67 TFLOP/s). The backward
 // must read 3.3 MB and write 3.3 MB: about 1.96 us (about 200 operations
-// a pixel, 1.2 us). What holds the fused backward is instruction issue,
-// not memory: the in-order sums over a tile grown by its halo (1.56
-// centres and 2.25 staged pixels an output at win 9) and the
-// coefficients' IEEE divides. Without the coefficient arithmetic it takes
-// about 15% less time; without its global loads, 3% less (PERF.md).
+// a pixel, 1.2 us). What holds both is instruction issue and latency, not
+// memory: the in-order sums over a tile grown by its halo (for the fused
+// backward 1.56 centres and 2.25 staged pixels an output at win 9, for
+// the forward 1.25 row sums and 1.56 staged pixels at 32 rows), the IEEE
+// divides, and for the forward the wait on its staging and on the
+// grid-wide barrier before the planes' sums. The backward without its
+// coefficient arithmetic takes about 15% less time; without its global
+// loads, 3% less (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "window.cuh"
+
 namespace {
 
 constexpr int kMaxWin = 15;
-constexpr int kTile = 32;                     // outputs per tile side
-constexpr int kMaxHalo = kTile + kMaxWin - 1;  // staged rows/columns
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kRows = kTile / kThreadsY;  // output rows per thread
 constexpr float kEps = 1e-5f;
 
-// Stage the tile of `x` whose first output pixel is (r0, c0), with a
-// win/2 halo and zeros outside the plane, into xs[halo][halo].
-__device__ void stage(const float* x, int h, int w, int r0, int c0, int win,
-                      float (*xs)[kMaxHalo]) {
-  const int pad = win / 2;
-  const int halo = kTile + win - 1;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  for (int k = tid; k < halo * halo; k += kThreads) {
-    const int r = k / halo;
-    const int c = k - r * halo;
-    const int gr = r0 - pad + r;
-    const int gc = c0 - pad + c;
-    const bool in = gr >= 0 && gr < h && gc >= 0 && gc < w;
-    xs[r][c] = in ? x[(int64_t)gr * w + gc] : 0.0f;
-  }
-}
-
-// The five SAME window sums I_s, J_s, I2_s, J2_s, IJ_s at the tile's
-// output (r0 + i, c0 + j) for i = threadIdx.y + kThreadsY * k: stage I and
-// J, take the row sums of the five products, then the column sums.
-struct Sums {
-  float I, J, I2, J2, IJ;
-};
-
-__device__ void window_sums(const float* x, const float* y, int h, int w,
-                            int r0, int c0, int win, float (*xs)[kMaxHalo],
-                            float (*ys)[kMaxHalo],
-                            float (*hs)[kMaxHalo][kTile], Sums* out) {
-  stage(x, h, w, r0, c0, win, xs);
-  stage(y, h, w, r0, c0, win, ys);
-  __syncthreads();
-  const int halo = kTile + win - 1;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  for (int k = tid; k < halo * kTile; k += kThreads) {
-    const int r = k / kTile;
-    const int j = k - r * kTile;
-    float sx = 0.0f, sy = 0.0f, sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
-    for (int d = 0; d < win; ++d) {
-      const float a = xs[r][j + d];
-      const float b = ys[r][j + d];
-      sx += a;
-      sy += b;
-      sxx += a * a;
-      syy += b * b;
-      sxy += a * b;
-    }
-    hs[0][r][j] = sx;
-    hs[1][r][j] = sy;
-    hs[2][r][j] = sxx;
-    hs[3][r][j] = syy;
-    hs[4][r][j] = sxy;
-  }
-  __syncthreads();
-  const int j = threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int i = threadIdx.y + kThreadsY * k;
-    float s[5];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) {
-      float acc = hs[q][i][j];
-      for (int d = 1; d < win; ++d) acc += hs[q][i + d][j];
-      s[q] = acc;
-    }
-    out[k] = {s[0], s[1], s[2], s[3], s[4]};
-  }
-}
-
-// Sum of `v` over the block, in a fixed order; the result is in thread 0.
-__device__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int warps = (blockDim.x * blockDim.y + 31) / 32;
-  if ((tid & 31) == 0) scratch[tid >> 5] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (tid == 0)
-    for (int k = 0; k < warps; ++k) total += scratch[k];
-  return total;
-}
-
-// grid (tiles_x, tiles_y, N*C); partial[plane * tiles + tile] = sum of cc
-// over the tile's pixels.
-__global__ void __launch_bounds__(kThreads)
+// One cooperative launch, each block walking tiles t (plane t / tiles,
+// tile t % tiles, row-major over tiles_x column tiles) of TH x kFwdCols
+// outputs (window.cuh): the five SAME window sums at the tile's outputs,
+// their cc in the forward's expanded formula, summed over the block into
+// partial[t]; then the planes' sums (plane_sums). sums[plane] = sum of cc
+// over the plane.
+template <int W, int TH>
+__global__ void __launch_bounds__(Fwd<W, TH>::kThreads)
     lncc_fwd_kernel(const float* __restrict__ I, const float* __restrict__ J,
-                    float* __restrict__ partial, int h, int w, int win) {
-  __shared__ float xs[kMaxHalo][kMaxHalo];
-  __shared__ float ys[kMaxHalo][kMaxHalo];
-  __shared__ float hs[5][kMaxHalo][kTile];
-  __shared__ float scratch[kThreads / 32];
-  const int64_t plane = blockIdx.z;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-  Sums s[kRows];
-  window_sums(I + plane * h * w, J + plane * h * w, h, w, r0, c0, win, xs, ys,
-              hs, s);
-  const float ws = (float)(win * win);
-  float acc = 0.0f;
+                    float* __restrict__ partial, float* __restrict__ sums,
+                    int64_t planes, int h, int w, int tiles_x, int tiles) {
+  constexpr int P = W / 2;
+  __shared__ FwdSmem<W, TH> sm;
+  const int j = threadIdx.x % kFwdCols, i0 = (threadIdx.x / kFwdCols) * kFwdSeg;
+  const float ws = (float)(W * W);
+  for (int64_t t = blockIdx.x; t < planes * tiles; t += gridDim.x) {
+    const int64_t plane = t / tiles;
+    const int tile = (int)(t - plane * tiles);
+    const int r0 = (tile / tiles_x) * TH;
+    const int c0 = (tile % tiles_x) * kFwdCols;
+    float s[5][kFwdSeg];
+    fwd_window_sums<W, TH>(I + plane * h * w, J + plane * h * w, h, w, r0 - P, c0 - P,
+                           sm, s);
+    float acc = 0.0f;
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int i = threadIdx.y + kThreadsY * k;
-    if (r0 + i >= h || c0 + threadIdx.x >= w) continue;
-    const float u_I = s[k].I / ws;
-    const float u_J = s[k].J / ws;
-    const float cross = s[k].IJ - u_J * s[k].I - u_I * s[k].J + u_I * u_J * ws;
-    const float I_var = s[k].I2 - 2.0f * u_I * s[k].I + u_I * u_I * ws;
-    const float J_var = s[k].J2 - 2.0f * u_J * s[k].J + u_J * u_J * ws;
-    acc += cross * cross / (I_var * J_var + kEps);
+    for (int k = 0; k < kFwdSeg; ++k) {
+      if (r0 + i0 + k >= h || c0 + j >= w) continue;
+      const float Is = s[0][k], Js = s[1][k], I2 = s[2][k], J2 = s[3][k], IJ = s[4][k];
+      const float u_I = Is / ws;
+      const float u_J = Js / ws;
+      const float cross = IJ - u_J * Is - u_I * Js + u_I * u_J * ws;
+      const float I_var = I2 - 2.0f * u_I * Is + u_I * u_I * ws;
+      const float J_var = J2 - 2.0f * u_J * Js + u_J * u_J * ws;
+      acc += cross * cross / (I_var * J_var + kEps);
+    }
+    acc = block_sum(acc, sm.red);
+    if (threadIdx.x == 0) partial[t] = acc;
   }
-  const float total = block_sum(acc, scratch);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partial[plane * gridDim.x * gridDim.y + blockIdx.y * gridDim.x +
-            blockIdx.x] = total;
+  plane_sums(partial, sums, planes, tiles, sm.red);
 }
 
-// One block per plane: sums[plane] = the plane's partials, in a fixed order.
-__global__ void lncc_plane_sum_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ sums, int n_tiles) {
-  __shared__ float scratch[kThreads / 32];
-  const float* p = partial + (int64_t)blockIdx.x * n_tiles;
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) acc += p[k];
-  const float total = block_sum(acc, scratch);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+// Launch lncc_fwd_kernel<W, TH> over rows x cols outputs a plane.
+template <int W, int TH>
+int launch_fwd(const void* I, const void* J, void* partial, void* sums, int64_t planes,
+               int h, int w, cudaStream_t s) {
+  int tiles_x = (w + kFwdCols - 1) / kFwdCols;
+  int tiles = tiles_x * ((h + TH - 1) / TH);
+  void* args[] = {&I, &J, &partial, &sums, &planes, &h, &w, &tiles_x, &tiles};
+  return launch_cooperative<lncc_fwd_kernel<W, TH>>(Fwd<W, TH>::kThreads, planes * tiles,
+                                                   args, s);
 }
 
-inline dim3 tiles(int h, int w, int64_t planes) {
-  return dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
-              (unsigned)planes);
-}
-
-inline bool valid_win(int win) { return win >= 1 && win <= kMaxWin && win % 2 == 1; }
-
-// 4 bytes from global to shared memory, zero-filled where `in` is false
-// (src-size 0: nothing is read), so SAME padding needs no branch on the
-// loaded value; `src` is a mapped address either way.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+template <int W>
+int launch_fwd_rows(const void* I, const void* J, void* partial, void* sums,
+                    int64_t planes, int h, int w, int rows, cudaStream_t s) {
+  switch (rows) {
+    case 32: return launch_fwd<W, 32>(I, J, partial, sums, planes, h, w, s);
+    case 16: return launch_fwd<W, 16>(I, J, partial, sums, planes, h, w, s);
+    case 8: return launch_fwd<W, 8>(I, J, partial, sums, planes, h, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The fused backward's tile at window W: a kTile x kTile output tile, the
@@ -222,12 +140,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // registers. Row strides are odd, so that the 32 lanes of a warp, on 32
 // rows of one column, hit 32 banks. The row sums share their space with
 // the box pass's row sums, the staged I and J with the coefficient maps.
-constexpr int kBwdThreads = 512;
-constexpr int kSegOut = kTile * kTile / kBwdThreads;  // rows a thread, last pass
-
-constexpr int odd(int n) { return n | 1; }
-constexpr int max2(int a, int b) { return a > b ? a : b; }
-
 template <int W>
 struct Bwd {
   static constexpr int S = kTile + 2 * (W - 1);  // staged pixels a side
@@ -450,21 +362,26 @@ int launch_bwd(const void* I, const void* J, const void* gout, float scale,
 // returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for a
 // window it does not take); none synchronises or allocates.
 
-// partial: [planes * tiles] scratch, tiles = ceil(h/32) * ceil(w/32);
-// sums: [planes], the per-plane sums of the cc map.
-extern "C" int san_lncc_fwd(const void* I, const void* J, void* partial,
-                            void* sums, int64_t planes, int h, int w, int win,
+// partial: [planes * tiles] scratch, tiles = ceil(h/rows) * ceil(w/32),
+// rows (8, 16 or 32) the tile's output rows (kernels/__init__.py::fwd_rows
+// sizes both); sums: [planes], the per-plane sums of the cc map. One
+// cooperative launch of the forward for the window and tile.
+extern "C" int san_lncc_fwd(const void* I, const void* J, void* partial, void* sums,
+                            int64_t planes, int h, int w, int win, int rows,
                             void* stream) {
-  if (!valid_win(win)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = tiles(h, w, planes);
-  lncc_fwd_kernel<<<grid, dim3(kThreadsX, kThreadsY), 0, s>>>(
-      (const float*)I, (const float*)J, (float*)partial, h, w, win);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  lncc_plane_sum_kernel<<<(unsigned)planes, kThreads, 0, s>>>(
-      (const float*)partial, (float*)sums, (int)(grid.x * grid.y));
-  return (int)cudaGetLastError();
+  switch (win) {
+    case 1: return launch_fwd_rows<1>(I, J, partial, sums, planes, h, w, rows, s);
+    case 3: return launch_fwd_rows<3>(I, J, partial, sums, planes, h, w, rows, s);
+    case 5: return launch_fwd_rows<5>(I, J, partial, sums, planes, h, w, rows, s);
+    case 7: return launch_fwd_rows<7>(I, J, partial, sums, planes, h, w, rows, s);
+    case 9: return launch_fwd_rows<9>(I, J, partial, sums, planes, h, w, rows, s);
+    case 11: return launch_fwd_rows<11>(I, J, partial, sums, planes, h, w, rows, s);
+    case 13: return launch_fwd_rows<13>(I, J, partial, sums, planes, h, w, rows, s);
+    case 15: return launch_fwd_rows<15>(I, J, partial, sums, planes, h, w, rows, s);
+    static_assert(kMaxWin == 15, "a case for every window");
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // gout: the upstream gradient of the loss (one f32 on the device); scale =

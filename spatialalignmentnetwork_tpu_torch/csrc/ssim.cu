@@ -6,18 +6,21 @@
 // `_ssim_bwd_kernel` (pallas_call at :204). The TPU kernels hold one whole
 // (sample, channel) plane in VMEM per program; a GPU block has at most
 // 227 KB of shared memory and 132 SMs to fill, so here a plane is cut into
-// 32 x 32 tiles with a 6-pixel halo, many blocks per plane.
+// tiles with a 6-pixel halo, many blocks per plane.
 //
 // SSIM as the reference's loss (ssimloss.py:11-40): 7 x 7 uniform window,
 // VALID windows, k1 0.01, k2 0.03, data range 1, covariance normalised by
 // 49/48, loss = 1 - mean(S). f32 throughout.
 //
-// ssim_fwd: each block stages its X and Y tile (38 x 38) in shared memory,
+// ssim_fwd: one cooperative launch. Each block takes TH x 32 tiles of
+// windows (TH 32, 16 or 8, the shorter tiles only where the planes are too
+// few and small for 32), stages X and Y over each plus 6 by cp.async,
 // takes the five window sums separably (7 along rows, then 7 along
-// columns, each in order, as the Pallas kernel does), forms the SSIM map
-// in registers and reduces it to one partial per block in a fixed order.
-// A second launch sums each plane's partials in a fixed order, so the loss
-// is the same on every run (no float atomics).
+// columns, each in order, as the Pallas kernel does; window.cuh), forms
+// the SSIM map in registers and sums it over the block in a fixed order
+// into the tile's partial. After a grid-wide barrier, blocks sum the
+// planes' partials in tile order, so the loss is the same on every run
+// (no float atomics).
 //
 // ssim_bwd: with G_q = dS/du_q per valid window (masked to the valid
 // windows, as at ops/pallas/ssim.py:172-182),
@@ -35,88 +38,32 @@
 // Bound on the H100 SXM: memory. At the train shape (X and Y [4, 1, 320,
 // 320]) the forward must read 3.3 MB: about 0.98 us at 3.35 TB/s (about 100
 // f32 operations a pixel are under 1 us at 67 TFLOP/s). The backward must
-// read 3.3 MB and write 3.3 MB: about 1.96 us. What holds the fused
-// backward is instruction issue, as in lncc.cu: in-order sums over a tile
-// grown by its halo (1.41 windows and 1.89 staged pixels an output) and
-// the G maps' five IEEE divides a window (without the G arithmetic it
-// takes about 12% less time; PERF.md).
+// read 3.3 MB and write 3.3 MB: about 1.96 us. What holds both is
+// instruction issue and latency, as in lncc.cu: for the fused backward
+// in-order sums over a tile grown by its halo (1.41 windows and 1.89
+// staged pixels an output) and the G maps' five IEEE divides a window
+// (without the G arithmetic it takes about 12% less time; PERF.md); for
+// the forward the wait on its staging and on the grid-wide barrier.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "window.cuh"
+
 namespace {
 
 constexpr int kWin = 7;
-constexpr int kTile = 32;                  // outputs per tile side
-constexpr int kHalo = kTile + kWin - 1;    // 38 staged rows/columns
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kThreads = kThreadsX * kThreadsY;
 constexpr float kInv = 1.0f / 49.0f;
 constexpr float kCovNorm = 49.0f / 48.0f;
 constexpr float kC1 = 0.0001f;  // (k1 * data_range)^2
 constexpr float kC2 = 0.0009f;  // (k2 * data_range)^2
 
-// The five window means of the window whose top-left corner is at row i,
-// column j of the horizontal sums `hs` [5][kHalo][kTile].
+// The five window means of one window.
 struct Stats {
   float ux, uy, uxx, uyy, uxy;
 };
-
-__device__ __forceinline__ Stats column_sums(float (*hs)[kHalo][kTile],
-                                             int i, int j) {
-  float s[5];
-#pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    float acc = hs[q][i][j];
-#pragma unroll
-    for (int d = 1; d < kWin; ++d) acc += hs[q][i + d][j];
-    s[q] = acc * kInv;
-  }
-  return {s[0], s[1], s[2], s[3], s[4]};
-}
-
-// Stage the X/Y tile whose top-left pixel is (r0, c0) (zero beyond the
-// plane) and take the horizontal 7-sums of x, y, x^2, y^2 and xy.
-__device__ void stage_and_row_sums(const float* x, const float* y, int h,
-                                   int w, int r0, int c0,
-                                   float (*xs)[kHalo], float (*ys)[kHalo],
-                                   float (*hs)[kHalo][kTile]) {
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  for (int k = tid; k < kHalo * kHalo; k += kThreads) {
-    const int r = k / kHalo;
-    const int c = k - r * kHalo;
-    const int gr = r0 + r;
-    const int gc = c0 + c;
-    const bool in = gr < h && gc < w;
-    xs[r][c] = in ? x[(int64_t)gr * w + gc] : 0.0f;
-    ys[r][c] = in ? y[(int64_t)gr * w + gc] : 0.0f;
-  }
-  __syncthreads();
-  for (int k = tid; k < kHalo * kTile; k += kThreads) {
-    const int r = k / kTile;
-    const int j = k - r * kTile;
-    float sx = 0.0f, sy = 0.0f, sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
-#pragma unroll
-    for (int d = 0; d < kWin; ++d) {
-      const float a = xs[r][j + d];
-      const float b = ys[r][j + d];
-      sx += a;
-      sy += b;
-      sxx += a * a;
-      syy += b * b;
-      sxy += a * b;
-    }
-    hs[0][r][j] = sx;
-    hs[1][r][j] = sy;
-    hs[2][r][j] = sxx;
-    hs[3][r][j] = syy;
-    hs[4][r][j] = sxy;
-  }
-  __syncthreads();
-}
 
 struct Terms {
   float A1, A2, B1, B2;
@@ -130,71 +77,52 @@ __device__ __forceinline__ Terms ssim_terms(const Stats& u) {
           u.ux * u.ux + u.uy * u.uy + kC1, vx + vy + kC2};
 }
 
-// Sum of `v` over the block, in a fixed order; the result is in thread 0.
-__device__ float block_sum(float v, float* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int warps = (blockDim.x * blockDim.y + 31) / 32;
-  if ((tid & 31) == 0) scratch[tid >> 5] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (tid == 0)
-    for (int k = 0; k < warps; ++k) total += scratch[k];
-  return total;
-}
-
-// grid (tiles_x, tiles_y, N*C); partial[plane * tiles + tile] = sum of S
-// over the tile's valid windows.
-__global__ void __launch_bounds__(kThreads)
+// One cooperative launch over the valid windows, each block walking tiles
+// t (plane t / tiles, tile t % tiles, row-major over tiles_x column tiles)
+// of TH x kFwdCols windows (window.cuh): the five window sums of the
+// tile's windows and S of each, summed over the block into partial[t];
+// then the planes' sums (plane_sums). sums[plane] = sum of S over the
+// plane's valid windows.
+template <int TH>
+__global__ void __launch_bounds__(Fwd<kWin, TH>::kThreads)
     ssim_fwd_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                    float* __restrict__ partial, int h, int w) {
-  __shared__ float xs[kHalo][kHalo];
-  __shared__ float ys[kHalo][kHalo];
-  __shared__ float hs[5][kHalo][kTile];
-  __shared__ float scratch[kThreads / 32];
-  const int64_t plane = blockIdx.z;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
+                    float* __restrict__ partial, float* __restrict__ sums,
+                    int64_t planes, int h, int w, int tiles_x, int tiles) {
+  __shared__ FwdSmem<kWin, TH> sm;
   const int hv = h - kWin + 1;
   const int wv = w - kWin + 1;
-  stage_and_row_sums(X + plane * h * w, Y + plane * h * w, h, w, r0, c0, xs,
-                     ys, hs);
-  float acc = 0.0f;
-  const int j = threadIdx.x;
-  for (int i = threadIdx.y; i < kTile; i += kThreadsY) {
-    if (r0 + i >= hv || c0 + j >= wv) continue;
-    const Terms t = ssim_terms(column_sums(hs, i, j));
-    acc += (t.A1 * t.A2) / (t.B1 * t.B2);
+  const int j = threadIdx.x % kFwdCols, i0 = (threadIdx.x / kFwdCols) * kFwdSeg;
+  for (int64_t t = blockIdx.x; t < planes * tiles; t += gridDim.x) {
+    const int64_t plane = t / tiles;
+    const int tile = (int)(t - plane * tiles);
+    const int r0 = (tile / tiles_x) * TH;
+    const int c0 = (tile % tiles_x) * kFwdCols;
+    float s[5][kFwdSeg];
+    fwd_window_sums<kWin, TH>(X + plane * h * w, Y + plane * h * w, h, w, r0, c0, sm, s);
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kFwdSeg; ++k) {
+      if (r0 + i0 + k >= hv || c0 + j >= wv) continue;
+      const Stats u{s[0][k] * kInv, s[1][k] * kInv, s[2][k] * kInv, s[3][k] * kInv,
+                    s[4][k] * kInv};
+      const Terms tm = ssim_terms(u);
+      acc += (tm.A1 * tm.A2) / (tm.B1 * tm.B2);
+    }
+    acc = block_sum(acc, sm.red);
+    if (threadIdx.x == 0) partial[t] = acc;
   }
-  const float total = block_sum(acc, scratch);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partial[plane * gridDim.x * gridDim.y + blockIdx.y * gridDim.x +
-            blockIdx.x] = total;
+  plane_sums(partial, sums, planes, tiles, sm.red);
 }
 
-// One block per plane: sums[plane] = the plane's partials, in a fixed order.
-__global__ void ssim_plane_sum_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ sums, int n_tiles) {
-  __shared__ float scratch[kThreads / 32];
-  const float* p = partial + (int64_t)blockIdx.x * n_tiles;
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < n_tiles; k += blockDim.x) acc += p[k];
-  const float total = block_sum(acc, scratch);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// 4 bytes from global to shared memory, zero-filled where `in` is false
-// (src-size 0: nothing is read); `src` is a mapped address either way.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+// Launch ssim_fwd_kernel<TH> over the (h - 6) x (w - 6) windows a plane.
+template <int TH>
+int launch_fwd(const void* X, const void* Y, void* partial, void* sums, int64_t planes,
+               int h, int w, cudaStream_t s) {
+  int tiles_x = (w - kWin + 1 + kFwdCols - 1) / kFwdCols;
+  int tiles = tiles_x * ((h - kWin + 1 + TH - 1) / TH);
+  void* args[] = {&X, &Y, &partial, &sums, &planes, &h, &w, &tiles_x, &tiles};
+  return launch_cooperative<ssim_fwd_kernel<TH>>(Fwd<kWin, TH>::kThreads, planes * tiles,
+                                                args, s);
 }
 
 // The fused backward's tile: the windows whose top-left corners are in
@@ -207,11 +135,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // column, hit 32 banks. The row sums share their space with the box
 // pass's row sums, the staged X and Y with the G maps.
 constexpr int kSeg = 4;
-constexpr int kBwdThreads = 512;
-constexpr int kSegOut = kTile * kTile / kBwdThreads;  // rows a thread, last pass
-
-constexpr int odd(int n) { return n | 1; }
-constexpr int max2(int a, int b) { return a > b ? a : b; }
 
 struct Bwd {
   static constexpr int S = kTile + 2 * (kWin - 1);  // staged pixels a side
@@ -403,31 +326,26 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-inline dim3 tiles(int rows, int cols, int64_t planes) {
-  return dim3((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile,
-              (unsigned)planes);
-}
-
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. X, Y: [planes, h, w] f32,
 // contiguous, h and w >= 7. Each launches on `stream` and returns
 // cudaGetLastError() (0 on success); none synchronises or allocates.
 
-// partial: [planes * tiles] scratch, tiles = ceil((h-6)/32) * ceil((w-6)/32);
-// sums: [planes], the per-plane sums of the SSIM map.
-extern "C" int san_ssim_fwd(const void* X, const void* Y, void* partial,
-                            void* sums, int64_t planes, int h, int w,
-                            void* stream) {
+// partial: [planes * tiles] scratch, tiles = ceil((h-6)/rows) *
+// ceil((w-6)/32), rows (8, 16 or 32) the tile's rows of windows
+// (kernels/__init__.py::fwd_rows sizes both); sums: [planes], the
+// per-plane sums of the SSIM map. One cooperative launch of the forward
+// for the tile.
+extern "C" int san_ssim_fwd(const void* X, const void* Y, void* partial, void* sums,
+                            int64_t planes, int h, int w, int rows, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid = tiles(h - kWin + 1, w - kWin + 1, planes);
-  ssim_fwd_kernel<<<grid, dim3(kThreadsX, kThreadsY), 0, s>>>(
-      (const float*)X, (const float*)Y, (float*)partial, h, w);
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  ssim_plane_sum_kernel<<<(unsigned)planes, kThreads, 0, s>>>(
-      (const float*)partial, (float*)sums, (int)(grid.x * grid.y));
-  return (int)cudaGetLastError();
+  switch (rows) {
+    case 32: return launch_fwd<32>(X, Y, partial, sums, planes, h, w, s);
+    case 16: return launch_fwd<16>(X, Y, partial, sums, planes, h, w, s);
+    case 8: return launch_fwd<8>(X, Y, partial, sums, planes, h, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // gout: the upstream gradient of the loss (one f32 on the device); scale =

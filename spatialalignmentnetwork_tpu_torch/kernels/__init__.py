@@ -10,7 +10,9 @@ import every module on machines without `nvcc` or a card.
 `LAUNCHES` counts each kernel's launches (one per wrapper call that
 launches it), so a caller can show that a path went through its kernels.
 `on_card` picks the route for a tensor: its kernel on a CUDA tensor, its
-plain PyTorch version on a CPU tensor, nothing else.
+plain PyTorch version on a CPU tensor, nothing else. `fwd_rows` and
+`fwd_tiles` give the window losses' forward tile (`csrc/window.cuh`), from
+which their wrappers size both the launch and its scratch.
 """
 
 import collections
@@ -31,6 +33,34 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = collections.Counter()
+
+# The LNCC and SSIM forwards' tile (csrc/window.cuh): FWD_COLS outputs a
+# row by one of FWD_ROWS rows, the tallest whose grid has a block for at
+# least every FWD_SMS_A_BLOCK-th SM. The forward is latency-bound: on an
+# H100 the 32-row tile is the fastest at 320² and 160² (400 and 100
+# blocks), and the shorter tiles gain only where 32 rows leave most SMs
+# idle (PERF.md, PR 12)
+FWD_COLS = 32
+FWD_ROWS = (32, 16, 8)
+FWD_SMS_A_BLOCK = 2
+
+
+def fwd_tiles(rows: int, cols: int, th: int) -> int:
+    """Tiles a plane of rows x cols outputs of the forward at th rows a
+    tile."""
+    return -(-rows // th) * -(-cols // FWD_COLS)
+
+
+def fwd_rows(planes: int, rows: int, cols: int, sms: int) -> int:
+    """Output rows a tile of the LNCC or SSIM forward on `planes` planes of
+    rows x cols outputs on a card of `sms` SMs: the tallest of FWD_ROWS
+    whose grid has at least sms / FWD_SMS_A_BLOCK blocks, else the
+    shortest. The wrappers size both the launch and the partials' scratch
+    from it."""
+    for th in FWD_ROWS:
+        if FWD_SMS_A_BLOCK * planes * fwd_tiles(rows, cols, th) >= sms:
+            return th
+    return FWD_ROWS[-1]
 
 
 def reset_launches():
@@ -103,15 +133,25 @@ def _nvcc() -> str:
     )
 
 
+def library(source: str) -> str:
+    """The path `build` gives `csrc/<source>`'s library: named by a hash of
+    the source, every header under `csrc/` (which a source may include)
+    and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read() + b"\0")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
 def build(source: str) -> tuple:
     """Compile `csrc/<source>` into `_build/` unless a library built from
-    the same source text is there. Returns (library path, compiler log);
-    the log is empty when the cached library was reused."""
+    the same source and headers is there. Returns (library path, compiler
+    log); the log is empty when the cached library was reused."""
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
-    lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    lib = library(source)
     if os.path.exists(lib):
         return lib, ""
     os.makedirs(BUILD_DIR, exist_ok=True)

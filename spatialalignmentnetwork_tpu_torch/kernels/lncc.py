@@ -21,13 +21,13 @@ import functools
 import torch
 
 from ..ops.window import window_sum2d
-from . import check_f32_cuda, launch, load, on_card, upstream
+from . import check_f32_cuda, fwd_rows, fwd_tiles, launch, load, on_card, upstream
 
 FWD = "lncc_fwd"
 BWD = "lncc_bwd"
 SOURCE = "lncc.cu"
 MAX_WIN = 15  # the CUDA kernels' halo is sized for it
-TILE = 32  # outputs per tile side in the CUDA kernels
+TILE = 32  # outputs per tile side in the CUDA backward
 EPS = 1e-5
 
 
@@ -108,20 +108,20 @@ def _check_cuda(*tensors: torch.Tensor):
         raise ValueError("lncc kernels take at most 65535 planes")
 
 
-def _tiles(h: int, w: int) -> int:
-    return -(-h // TILE) * -(-w // TILE)
-
-
 def lncc_fwd_cuda(I: torch.Tensor, J: torch.Tensor, win: int = 9) -> torch.Tensor:
-    """Launch the forward kernels; per-plane sums of the cc map [N, C]."""
+    """Launch the forward kernel; per-plane sums of the cc map [N, C]. Its
+    tile's rows come from `kernels.fwd_rows`, which sizes the partials'
+    scratch too: one a tile."""
     check(I, J, win)
     _check_cuda(I, J)
     n, c, h, w = I.shape
-    partial = torch.empty(n * c * _tiles(h, w), dtype=torch.float32, device=I.device)
+    rows = fwd_rows(n * c, h, w, torch.cuda.get_device_properties(I.device).multi_processor_count)
+    partial = torch.empty(n * c * fwd_tiles(h, w, rows), dtype=torch.float32,
+                          device=I.device)
     sums = torch.empty((n, c), dtype=torch.float32, device=I.device)
     launch(FWD, _launcher("san_lncc_fwd"), I,
            I.data_ptr(), J.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-           n * c, h, w, win)
+           n * c, h, w, win, rows)
     return sums
 
 
@@ -143,7 +143,7 @@ def lncc_bwd_cuda(I: torch.Tensor, J: torch.Tensor, gout: torch.Tensor,
 
 
 _ARGTYPES = {
-    "san_lncc_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
+    "san_lncc_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "san_lncc_bwd": [ctypes.c_void_p] * 3 + [ctypes.c_float]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3

@@ -21,13 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.window import window_sum2d
-from . import check_f32_cuda, launch, load, on_card, upstream
+from . import check_f32_cuda, fwd_rows, fwd_tiles, launch, load, on_card, upstream
 
 FWD = "ssim_fwd"
 BWD = "ssim_bwd"
 SOURCE = "ssim.cu"
 WIN = 7
-TILE = 32  # outputs per tile side in the CUDA kernels
+TILE = 32  # pixels per tile side in the CUDA backward
 
 
 # ------------------------------------------------------------ plain versions
@@ -118,20 +118,21 @@ def _check_cuda(*tensors: torch.Tensor):
         raise ValueError("ssim kernels take at most 65535 planes")
 
 
-def _tiles(h: int, w: int) -> int:
-    return -(-(h - WIN + 1) // TILE) * -(-(w - WIN + 1) // TILE)
-
-
 def ssim_fwd_cuda(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernels; per-plane sums of the SSIM map [N, C]."""
+    """Launch the forward kernel; per-plane sums of the SSIM map [N, C].
+    Its tile's rows of windows come from `kernels.fwd_rows`, which sizes
+    the partials' scratch too: one a tile."""
     _check(X, Y)
     _check_cuda(X, Y)
     n, c, h, w = X.shape
-    partial = torch.empty(n * c * _tiles(h, w), dtype=torch.float32, device=X.device)
+    hv, wv = h - WIN + 1, w - WIN + 1
+    rows = fwd_rows(n * c, hv, wv, torch.cuda.get_device_properties(X.device).multi_processor_count)
+    partial = torch.empty(n * c * fwd_tiles(hv, wv, rows), dtype=torch.float32,
+                          device=X.device)
     sums = torch.empty((n, c), dtype=torch.float32, device=X.device)
     launch(FWD, _launcher("san_ssim_fwd"), X,
            X.data_ptr(), Y.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-           n * c, h, w)
+           n * c, h, w, rows)
     return sums
 
 
@@ -153,8 +154,8 @@ def ssim_bwd_cuda(X: torch.Tensor, Y: torch.Tensor, gout: torch.Tensor):
 
 
 _ARGTYPES = {
-    "san_ssim_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_void_p],
+    "san_ssim_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
     "san_ssim_bwd": [ctypes.c_void_p] * 3 + [ctypes.c_float]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p],

@@ -27,6 +27,7 @@ Tolerances:
 import contextlib
 import math
 import os
+import re
 import sys
 import types
 
@@ -293,10 +294,8 @@ def test_lncc_fused_tiling_matches_the_plain_backward(shape, win):
     give the plain closed form's dI, dJ, in float64 to 1e-6 of max, on
     planes the tile does not divide, a plane below the window and windows
     1 to MAX_WIN; the CUDA source's tile and largest window are these."""
-    src = open(os.path.join(REPO, "spatialalignmentnetwork_tpu_torch", "csrc",
-                            "lncc.cu")).read()
-    assert f"constexpr int kTile = {klncc.TILE};" in src
-    assert f"constexpr int kMaxWin = {klncc.MAX_WIN};" in src
+    assert f"constexpr int kTile = {klncc.TILE};" in _csrc("window.cuh")
+    assert f"constexpr int kMaxWin = {klncc.MAX_WIN};" in _csrc("lncc.cu")
     rng = np.random.default_rng(28)
     I = torch.from_numpy(rng.random(shape))
     J = 0.6 * I + 0.4 * torch.from_numpy(rng.random(shape))
@@ -305,6 +304,128 @@ def test_lncc_fused_tiling_matches_the_plain_backward(shape, win):
     want = klncc.lncc_bwd_plain(I, J, g, win)
     _assert_grads([t.numpy() for t in got], [t.numpy() for t in want], f"win {win}",
                   atol_of_max=1e-6)
+
+
+def _csrc(name):
+    return open(os.path.join(REPO, "spatialalignmentnetwork_tpu_torch", "csrc", name)).read()
+
+
+FWD_SEG = 4  # csrc/window.cuh kFwdSeg: a thread's outputs in each pass
+
+
+def _lane0_tree(v):
+    """Lane 0's value after the shuffle-down tree over 32 lanes (the last
+    dim, zero-padded to 32) that window.cuh's block_sum runs."""
+    v = torch.nn.functional.pad(v, (0, 32 - v.shape[-1]))
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def _block_sum(v):
+    """window.cuh's block_sum of v [..., threads]: a tree a warp, then one
+    over the warps' sums."""
+    warps = v.reshape(*v.shape[:-1], -1, 32)
+    return _lane0_tree(_lane0_tree(warps))
+
+
+def _fwd_tiled(x, y, win, rows, top, out_h, out_w, per_output):
+    """The CUDA forwards' tiling and reduction order (csrc/window.cuh), in
+    torch: tiles of `rows` x FWD_COLS outputs, output (i, j) of a tile
+    the window whose first pixel is (r0 - top + i, c0 - top + j), staged
+    with zeros outside the plane; the five window sums along rows, then
+    down columns, each in order; `per_output` of the sums, zero at outputs
+    outside out_h x out_w; a thread's FWD_SEG outputs down a column added
+    in order, block_sum into the tile's partial; then a plane's partials
+    in tile order, thread k taking k, k + threads, ..., and block_sum.
+    Returns the per-plane sums [N, C]."""
+    n, c, h, w = x.shape
+    cols = kernels.FWD_COLS
+    tiles_y, tiles_x = -(-out_h // rows), -(-out_w // cols)
+    right = max(0, tiles_x * cols + win - 1 - top - w)
+    bottom = max(0, tiles_y * rows + win - 1 - top - h)
+    xp = torch.nn.functional.pad(x, (top, right, top, bottom))
+    yp = torch.nn.functional.pad(y, (top, right, top, bottom))
+    ii = torch.arange(rows).view(-1, 1)
+    jj = torch.arange(cols).view(1, -1)
+    partials = []
+    for ty in range(tiles_y):
+        for tx in range(tiles_x):
+            r0, c0 = ty * rows, tx * cols
+            xs = xp[..., r0:r0 + rows + win - 1, c0:c0 + cols + win - 1]
+            ys = yp[..., r0:r0 + rows + win - 1, c0:c0 + cols + win - 1]
+            sums = [_in_order(_in_order(v, cols, win, 3), rows, win, 2)
+                    for v in (xs, ys, xs * xs, ys * ys, xs * ys)]
+            live = (r0 + ii < out_h) & (c0 + jj < out_w)
+            val = torch.where(live, per_output(*sums), torch.zeros((), dtype=x.dtype))
+            segs = val.reshape(n, c, rows // FWD_SEG, FWD_SEG, cols)
+            acc = torch.zeros_like(segs[..., 0, :])
+            for t in range(FWD_SEG):
+                acc = acc + segs[..., t, :]
+            partials.append(_block_sum(acc.reshape(n, c, -1)))  # thread = warp-major
+    part = torch.stack(partials, -1)
+    threads = rows * cols // FWD_SEG
+    acc = torch.zeros((n, c, threads), dtype=x.dtype)
+    for k0 in range(0, part.shape[-1], threads):
+        chunk = part[..., k0:k0 + threads]
+        acc = acc + torch.nn.functional.pad(chunk, (0, threads - chunk.shape[-1]))
+    return _block_sum(acc)
+
+
+def _lncc_cc(win):
+    ws = win * win
+
+    def cc(Is, Js, I2, J2, IJ):
+        u_I, u_J = Is / ws, Js / ws
+        cross = IJ - u_J * Is - u_I * Js + u_I * u_J * ws
+        I_var = I2 - 2.0 * u_I * Is + u_I * u_I * ws
+        J_var = J2 - 2.0 * u_J * Js + u_J * u_J * ws
+        return cross * cross / (I_var * J_var + klncc.EPS)
+    return cc
+
+
+@pytest.mark.parametrize("shape, win", [
+    ((1, 2, 45, 37), 9), ((2, 1, 7, 7), 9), ((1, 1, 45, 37), 1), ((1, 1, 45, 37), 5),
+    ((1, 1, 45, 37), 15), ((4, 1, 160, 160), 9), ((4, 1, 80, 80), 9)])
+def test_lncc_fwd_tiling_matches_the_plain_forward(shape, win):
+    """The one-launch CUDA forward's tiles (every tile height on the small
+    planes, the tile rule's on 132 SMs at ms_lncc_loss's 160² and 80²;
+    win/2 a side of zeros outside the plane, outputs outside the plane
+    dropped) and its reduction order give the plain forward's per-plane
+    sums, in float64 to 1e-12 relative, on planes the tile does not divide,
+    a plane below the window and windows 1 to MAX_WIN; the CUDA source's
+    tile constants are these."""
+    hdr = _csrc("window.cuh")
+    assert f"constexpr int kFwdCols = {kernels.FWD_COLS};" in hdr
+    assert f"constexpr int kFwdSeg = {FWD_SEG};" in hdr
+    n, c, h, w = shape
+    rule = {(4, 1, 160, 160): 32, (4, 1, 80, 80): 8}.get(shape)
+    if rule:
+        assert kernels.fwd_rows(n * c, h, w, 132) == rule
+    rng = np.random.default_rng(29)
+    I = torch.from_numpy(rng.random(shape))
+    J = 0.6 * I + 0.4 * torch.from_numpy(rng.random(shape))
+    want = klncc.lncc_fwd_plain(I, J, win)
+    for rows in [rule] if rule else kernels.FWD_ROWS:
+        got = _fwd_tiled(I, J, win, rows, win // 2, h, w, _lncc_cc(win))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=0,
+                                   err_msg=f"{rows} rows")
+
+
+@pytest.mark.parametrize("planes, rows, cols, sms, th", [
+    (4, 320, 320, 132, 32), (4, 160, 160, 132, 32), (4, 80, 80, 132, 8),
+    (4, 314, 314, 132, 32), (4, 154, 154, 132, 32), (4, 74, 74, 132, 8),
+    (8, 80, 80, 132, 32), (4, 80, 80, 114, 16), (1, 1, 1, 132, 8),
+    (65535, 7, 7, 132, 32)])
+def test_fwd_tile_rule_picks_the_rows_the_sources_take(planes, rows, cols, sms, th):
+    """kernels.fwd_rows: the tallest tile whose grid has a block for every
+    other SM (32 rows at 320² and 160², 8 at 80² on 132 SMs), from the
+    heights each forward's entry point takes."""
+    assert kernels.fwd_rows(planes, rows, cols, sms) == th
+    for src in ("lncc.cu", "ssim.cu"):
+        cases = [int(k) for k in re.findall(r"case (\d+): return launch_fwd<",
+                                            _csrc(src))]
+        assert sorted(set(cases)) == sorted(kernels.FWD_ROWS), src
 
 
 # ------------------------------------------------------------ MI

@@ -601,10 +601,8 @@ def test_ssim_fused_tiling_matches_the_plain_backward(shape):
     windows) give the plain closed form's dX, dY, in float64 to 1e-6 of
     max, on planes the tile does not divide and the smallest plane; the
     CUDA source's tile and window are these."""
-    src = open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                            "spatialalignmentnetwork_tpu_torch", "csrc", "ssim.cu")).read()
-    assert f"constexpr int kTile = {kssim.TILE};" in src
-    assert f"constexpr int kWin = {kssim.WIN};" in src
+    assert f"constexpr int kTile = {kssim.TILE};" in _csrc("window.cuh")
+    assert f"constexpr int kWin = {kssim.WIN};" in _csrc("ssim.cu")
     rng = np.random.default_rng(18)
     X = torch.from_numpy(rng.random(shape))
     Y = X + 0.1 * torch.from_numpy(rng.standard_normal(shape))
@@ -614,3 +612,110 @@ def test_ssim_fused_tiling_matches_the_plain_backward(shape):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
                                    atol=1e-6 * float(b.abs().max()))
+
+
+def _csrc(name):
+    return open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "spatialalignmentnetwork_tpu_torch", "csrc", name)).read()
+
+
+def _ssim_s(Sx, Sy, Sxx, Syy, Sxy):
+    """S of each window from its five window sums, as ssim.cu forms it."""
+    NP = kssim.WIN * kssim.WIN
+    cn, C1, C2 = NP / (NP - 1), 0.01**2, 0.03**2
+    ux, uy, uxx, uyy, uxy = (v * (1.0 / NP) for v in (Sx, Sy, Sxx, Syy, Sxy))
+    A1 = 2 * ux * uy + C1
+    A2 = 2 * (cn * (uxy - ux * uy)) + C2
+    B1 = ux * ux + uy * uy + C1
+    B2 = cn * (uxx - ux * ux) + cn * (uyy - uy * uy) + C2
+    return (A1 * A2) / (B1 * B2)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 45, 37), (1, 1, 7, 7), (1, 2, 64, 70),
+                                   (4, 1, 160, 160), (4, 1, 80, 80)])
+def test_ssim_fwd_tiling_matches_the_plain_forward(shape):
+    """The one-launch CUDA forward's tiles of windows (every tile height on
+    the small planes, the tile rule's on 132 SMs at 160² and 80²; zeros
+    beyond the plane, windows outside the valid ones dropped) and its
+    reduction order (tests/test_torch_port_losses.py::_fwd_tiled) give the
+    plain forward's per-plane sums, in float64 to 1e-12 relative."""
+    from tests.test_torch_port_losses import _fwd_tiled
+
+    n, c, h, w = shape
+    k = kssim.WIN
+    rule = {(4, 1, 160, 160): 32, (4, 1, 80, 80): 8}.get(shape)
+    if rule:
+        assert kernels.fwd_rows(n * c, h - k + 1, w - k + 1, 132) == rule
+    rng = np.random.default_rng(19)
+    X = torch.from_numpy(rng.random(shape))
+    Y = X + 0.1 * torch.from_numpy(rng.standard_normal(shape))
+    want = kssim.ssim_fwd_plain(X, Y)
+    for rows in [rule] if rule else kernels.FWD_ROWS:
+        got = _fwd_tiled(X, Y, k, rows, 0, h - k + 1, w - k + 1, _ssim_s)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=0,
+                                   err_msg=f"{rows} rows")
+
+
+@pytest.mark.parametrize("loss", ["ssim", "lncc"])
+def test_forwards_are_one_launch_with_a_partial_a_tile(card1, monkeypatch, loss):
+    """Each forward is one call of its C entry point, with as many
+    arguments as its _ARGTYPES: the inputs, a scratch of one partial a
+    tile and the sums as its pointers, and the tile's rows from
+    kernels.fwd_rows, which sized the scratch (6 planes of 80 x 70
+    outputs on 132 SMs: 16 rows, 5 x 3 tiles a plane)."""
+    import ctypes
+
+    from spatialalignmentnetwork_tpu_torch.kernels import lncc as klncc
+
+    seen, on1 = card1
+    sizes = []
+    stand_in = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *shape, **kw: sizes.append(
+        (shape, kw.get("dtype"))) or stand_in(*shape, **kw))
+    mod = {"ssim": kssim, "lncc": klncc}[loss]
+    rng = np.random.default_rng(20)
+    shape = (2, 3, 86, 76) if loss == "ssim" else (2, 3, 80, 70)  # 80 x 70 outputs
+    x = on1(torch.from_numpy(rng.random(shape).astype(np.float32)))
+    y = on1(torch.from_numpy(rng.random(shape).astype(np.float32)))
+    sums = getattr(mod, f"{loss}_fwd_cuda")(x, y)
+    ((symbol, _, args),) = seen
+    types = mod._ARGTYPES[symbol]
+    assert symbol == f"san_{loss}_fwd" and len(args) == len(types)
+    ptrs = [a for a, t in zip(args, types) if t is ctypes.c_void_p]
+    assert ptrs[:2] == [x.data_ptr(), y.data_ptr()] and ptrs[3:] == [sums.data_ptr(), 101]
+    assert kernels.fwd_rows(6, 80, 70, 132) == 16 and args[-2] == 16
+    assert sizes == [((6 * 5 * 3,), torch.float32), (((2, 3),), torch.float32)]
+    assert sums.shape == (2, 3)
+    assert dict(kernels.LAUNCHES) == {mod.FWD: 1}
+
+
+def test_build_rehashes_when_a_header_changes(tmp_path, monkeypatch):
+    """kernels.build names a library by its source and every header under
+    csrc/: a library is reused while neither changes, and an edit of a
+    header the source includes builds a new one. On a temporary csrc/,
+    with a stand-in for the compiler (no nvcc is run)."""
+    import types
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "shared.cuh").write_text("// one\n")
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    calls = []
+
+    def compile_stand_in(cmd, **kw):
+        calls.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return types.SimpleNamespace(returncode=0, stdout="ptxas log", stderr="")
+
+    monkeypatch.setattr(kernels.subprocess, "run", compile_stand_in)
+    lib, log = kernels.build("k.cu")
+    assert log == "ptxas log" and len(calls) == 1 and lib == kernels.library("k.cu")
+    assert kernels.build("k.cu") == (lib, "") and len(calls) == 1  # reused
+    (csrc / "shared.cuh").write_text("// two\n")
+    lib2, log2 = kernels.build("k.cu")
+    assert lib2 != lib and log2 == "ptxas log" and len(calls) == 2
+    assert os.path.exists(lib) and os.path.exists(lib2)
+
