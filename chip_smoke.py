@@ -15,7 +15,7 @@ failure:
      ptxas logs: tensor-core HMMA in every conv kernel instance (TF32 ones
      in the f32 kernels, bf16 ones in the bf16 kernels) and TF32 ones in
      the MI kernels' products, no spills in any of their kernels; the
-     SSIM and LNCC libraries' ptxas logs: no spills;
+     SSIM, LNCC and grid sample libraries' ptxas logs: no spills;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and more (all padding modes, C = 2, a
      non-square plane, augmentation's 352 plane, an output plane of odd
@@ -30,6 +30,14 @@ failure:
      peak device memory (phases 2 and 3 for SSIM and LNCC alone, with all
      four kernels timed at 160 and 80 too and each launch's device time:
      `python3 -c "import chip_smoke; chip_smoke.loss_phases()"`); the
+     grid sample backwards' bits run to run on every case (an odd plane,
+     a grid only 8-byte aligned, taps spread past any shared window, all
+     output pixels on one source pixel at 2^61 of int64, planes 2^40
+     apart, a zero plane, g with +inf, -inf and NaN), d_img against float64
+     and bit for bit against the emulation of its fixed-point arithmetic
+     (phases 2 and 3 for the grid sample alone, with both backwards timed
+     at [4,2,320,320] and 160² too and each launch's device time:
+     `python3 -c "import chip_smoke; chip_smoke.grid_phases()"`); the
      3x3 conv forward and input gradient, f32 and bf16, held
      to float64 on every conv of the ladder of phase 9 and on ragged
      planes, channels and batches), then its time beside its plain version, the one-call PyTorch equivalent where
@@ -108,11 +116,16 @@ SERVE_RTOL = 1e-3  # card vs CPU, end to end (cuDNN/cuFFT vs CPU sum order)
 SERVE_ATOL_REL = 1e-4  # ... atol as a fraction of max |CPU output|
 # kernel vs plain, as a fraction of the plain output's max |value|:
 DGRID_TOL = 1e-5  # same arithmetic, rounding order of the channel sum only
-DIMG_TOL = 1e-5  # float atomics add the taps in an order that varies by run
+# the plain version's f32 scatter (float atomics on the card) against the
+# kernel's fixed-point sum, within about 2^-40 of exact; per plane
+DIMG_TOL = 1e-5
+DIMG_F64_TOL = 1e-6  # the kernel against the plain version in float64, per plane
 SSIM_LOSS_ATOL = 1e-5  # window sums in another order than cuDNN's convs
 SSIM_GRAD_TOL = 1e-4  # ... and the variance terms cancel, amplifying it
 # card vs CPU through autograd (warp and SSIM alone), as a fraction of the
-# max |grad| (cuDNN-free; the d_img atomics reorder sums)
+# max |grad| (cuDNN-free; the SSIM kernels sum their windows in another
+# order than the CPU, whose d_img is an f32 scatter where the card's is a
+# fixed-point sum, and SSIM's variance terms cancel, amplifying it)
 GRAD_TOL = 2e-3
 # a whole train step on the card against the same step in f64 on the
 # CPU, as a fraction of each net's largest gradient. f32 determines these
@@ -467,73 +480,260 @@ def rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
+def plane_err(got, want, planes):
+    """max over `planes` planes of max |got - want| / max |want| over the
+    finite values of `want`; fails unless both are NaN, +inf and -inf at
+    the same places. A plane of zeros must come out as zeros (err inf
+    otherwise)."""
+    import torch
+
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(got), test(want)):
+            raise AssertionError(f"{test.__name__}: at other places than the reference's")
+    fin = torch.isfinite(want)
+    diff = (got.double() - want.double()).abs().where(fin, 0.0).reshape(planes, -1).amax(1)
+    scale = want.double().abs().where(fin, 0.0).reshape(planes, -1).amax(1)
+    if bool(((scale == 0) & (diff > 0)).any()):
+        return float("inf")
+    return float((diff / scale.clamp_min(1e-300)).max())
+
+
+def grid_bwd_cases(rng):
+    """(label, img, grid, g, normal) on the card for check_grid_sample_bwd;
+    `normal` marks the cases whose g is standard normal, which set the
+    kernels' max_abs_err."""
+    import torch
+
+    dev = torch.device("cuda")
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    cases = []
+    # the train shape, C = 2, an odd plane (a pixel at a time, a masked
+    # tail), augmentation's 352 plane
+    for n, c, h, w in ((TRAIN_BATCH, 1, SHAPE, SHAPE), (TRAIN_BATCH, 2, SHAPE, SHAPE),
+                       (2, 1, 317, 301), (TRAIN_BATCH, 1, 352, 352)):
+        cases.append((f"[{n},{c},{h},{w}]", normal(n, c, h, w),
+                      sample_grid(rng, n, h, w).to(dev), normal(n, c, h, w), True))
+    # taps spread over the plane: no tile's box fits the shared window
+    grid = torch.from_numpy(rng.uniform(-1.5, 1.5, (2, SHAPE, SHAPE, 2)).astype(np.float32))
+    cases.append(("uniform grid in [-1.5, 1.5] (global atomics)", normal(2, 1, SHAPE, SHAPE),
+                  grid.to(dev), normal(2, 1, SHAPE, SHAPE), True))
+    # a grid only 8-byte aligned: d_grid and d_img a pixel at a time
+    grid = sample_grid(rng, 2, SHAPE, SHAPE).to(dev)
+    buf = torch.empty(grid.numel() + 2, device=dev)
+    buf[2:] = grid.flatten()
+    cases.append(("grid +2 floats (8-byte aligned)", normal(2, 1, SHAPE, SHAPE),
+                  buf[2:].view(grid.shape), normal(2, 1, SHAPE, SHAPE), True))
+    # every output pixel of a 256 x 512 plane onto source pixel (2, 2) with
+    # weight 1 (x = y = -1 + 1/64: ((1/64) 320 - 1) / 2 = 2 exactly), g
+    # 2^100: the sum 2^17 2^100 is exact in f32, and its word is 2^61 of
+    # int64's 2^63
+    cases.append(("256x512 -> pixel (2, 2), g 2^100 (int64 headroom)",
+                  normal(1, 1, SHAPE, SHAPE),
+                  torch.full((1, 256, 512, 2), -1.0 + 1.0 / 64, device=dev),
+                  torch.full((1, 1, 256, 512), 2.0**100, device=dev), False))
+    g = normal(2, 2, SHAPE, SHAPE)
+    g[:, 1] *= 2.0**40
+    cases.append(("channel 1's g 2^40 times channel 0's", normal(2, 2, SHAPE, SHAPE),
+                  sample_grid(rng, 2, SHAPE, SHAPE).to(dev), g, False))
+    g = normal(2, 1, SHAPE, SHAPE)
+    g[1] = 0.0
+    cases.append(("image 1's g all zero", normal(2, 1, SHAPE, SHAPE),
+                  sample_grid(rng, 2, SHAPE, SHAPE).to(dev), g, False))
+    g = normal(2, 1, SHAPE, SHAPE)
+    inf = float("inf")
+    for (b, y, x), v in (((0, 10, 10), inf), ((0, 100, 200), -inf), ((1, 50, 50), float("nan")),
+                         ((0, 200, 17), inf), ((0, 201, 17), -inf)):
+        g[b, 0, y, x] = v
+    cases.append(("g with +inf, -inf and NaN", normal(2, 1, SHAPE, SHAPE),
+                  sample_grid(rng, 2, SHAPE, SHAPE).to(dev), g, False))
+    return cases
+
+
 def check_grid_sample_bwd(rng):
-    """The d_grid and d_img kernels vs their plain versions on the card;
-    returns their `kernels` entries (without the launch counts)."""
+    """The d_grid and d_img kernels on the card, on every case of
+    grid_bwd_cases in every padding mode: both the same bits run to run;
+    d_grid against its plain version; d_img against its plain version (f32
+    scatter) and in float64, plane by plane, and bit for bit against the
+    emulation of its arithmetic (kgs.grid_sample_bwd_dimg_fixed), with
+    non-finite values where the plain version has them; on the odd plane
+    both the same bits from inputs that end at unmapped memory. Then both
+    kernels timed at the train shape; returns their `kernels` entries
+    (without the launch counts)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
+
+    err = {"dgrid": 0.0, "dimg": 0.0}
+    for label, img, grid, g, normal in grid_bwd_cases(rng):
+        size = tuple(img.shape)
+        n, c = size[:2]
+        for mode in kgs.PADDING_MODES:
+            dgrid = [kgs.grid_sample_bwd_dgrid_cuda(img, grid, g, mode) for _ in range(2)]
+            same_bits(f"d_grid {label} {mode}", size, dgrid[:1], dgrid[1:])
+            e = plane_err(dgrid[0], kgs.grid_sample_bwd_dgrid_plain(img, grid, g, mode), n)
+            if not e <= DGRID_TOL:
+                raise AssertionError(f"d_grid {label} {mode}: {e}")
+            dimg = [kgs.grid_sample_bwd_dimg_cuda(grid, g, size, mode) for _ in range(2)]
+            same_bits(f"d_img {label} {mode}", size, dimg[:1], dimg[1:])
+            plain = kgs.grid_sample_bwd_dimg_plain(grid, g, size, mode)
+            ei = plane_err(dimg[0], plain, n * c)
+            e64 = plane_err(dimg[0], kgs.grid_sample_bwd_dimg_plain(grid, g.double(), size, mode),
+                            n * c)
+            if not (ei <= DIMG_TOL and e64 <= DIMG_F64_TOL):
+                raise AssertionError(f"d_img {label} {mode}: {ei} of plain, {e64} of float64")
+            fixed = kgs.grid_sample_bwd_dimg_fixed(grid, g, size, mode)
+            nan = torch.isnan(fixed)
+            if not (torch.equal(torch.isnan(dimg[0]), nan)
+                    and torch.equal(bits(dimg[0].where(~nan, 0.0)), bits(fixed.where(~nan, 0.0)))):
+                raise AssertionError(f"d_img {label} {mode}: not the emulation's bits")
+            if normal:
+                err["dgrid"] = max(err["dgrid"], float(
+                    (dgrid[0] - kgs.grid_sample_bwd_dgrid_plain(img, grid, g, mode)).abs().max()))
+                err["dimg"] = max(err["dimg"], float((dimg[0] - plain).abs().max()))
+            if label == "[2,1,317,301]":
+                with guarded(img) as gimg, guarded(grid) as ggrid, guarded(g) as gg:
+                    edge = (kgs.grid_sample_bwd_dgrid_cuda(gimg, ggrid, gg, mode),
+                            kgs.grid_sample_bwd_dimg_cuda(ggrid, gg, size, mode))
+                same_bits(f"d_grid, d_img {label} {mode} at unmapped memory", size,
+                          edge, (dgrid[0], dimg[0]))
+            log(f"grid_sample bwd {label} {mode:10s}: d_grid max|kernel-plain|/max|plain| "
+                f"{e:.3g} (tol {DGRID_TOL}); d_img {ei:.3g} of plain (tol {DIMG_TOL}), "
+                f"{e64:.3g} of float64 (tol {DIMG_F64_TOL}), the emulation's bits; both the "
+                f"same bits run to run"
+                + ("; and from inputs ending at unmapped memory"
+                   if label == "[2,1,317,301]" else ""))
+
+    ms, nbytes, flops = time_grid_bwd(rng, (TRAIN_BATCH, 1, SHAPE, SHAPE), plain=True)
+    return [
+        entry(kgs.DGRID, "grid_sample.cu", "grid_sample.py:451", err["dgrid"],
+              ms["dgrid"], nbytes["dgrid"], flops["dgrid"]),
+        entry(kgs.DIMG, "grid_sample.cu", "grid_sample.py:438", err["dimg"],
+              ms["dimg"], nbytes["dimg"], flops["dimg"]),
+    ]
+
+
+def time_grid_bwd(rng, shape, plain=False):
+    """The d_grid and d_img kernels' device ms at `shape` [N, C, H, W]
+    (zeros padding, `sample_grid`, normal image and g), on sets of inputs
+    larger than L2, beside aten's grid_sampler_2d_backward for the same
+    gradient and, with `plain`, the plain versions; logged with their byte
+    bounds. Returns ({name: {"kernel": ms, ...}}, {name: bytes}, {name:
+    flops}) for name in dgrid, dimg."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
 
     dev = torch.device("cuda")
-    err = {"dgrid": 0.0, "dimg": 0.0}
-    for n, c, h, w in ((TRAIN_BATCH, 1, SHAPE, SHAPE), (TRAIN_BATCH, 2, SHAPE, SHAPE),
-                       (2, 1, 317, 301)):
-        img = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(dev)
-        g = torch.from_numpy(rng.standard_normal((n, c, h, w)).astype(np.float32)).to(dev)
-        grid = sample_grid(rng, n, h, w).to(dev)
-        for mode in kgs.PADDING_MODES:
-            got = kgs.grid_sample_bwd_dgrid_cuda(img, grid, g, mode)
-            want = kgs.grid_sample_bwd_dgrid_plain(img, grid, g, mode)
-            e = rel_err(got, want)
-            if not e <= DGRID_TOL:
-                raise AssertionError(f"d_grid [{n},{c},{h},{w}] {mode}: {e}")
-            err["dgrid"] = max(err["dgrid"], float((got - want).abs().max()))
-            got = kgs.grid_sample_bwd_dimg_cuda(grid, g, img.shape, mode)
-            again = kgs.grid_sample_bwd_dimg_cuda(grid, g, img.shape, mode)
-            want = kgs.grid_sample_bwd_dimg_plain(grid, g, img.shape, mode)
-            ei = rel_err(got, want)
-            if not ei <= DIMG_TOL:
-                raise AssertionError(f"d_img [{n},{c},{h},{w}] {mode}: {ei}")
-            err["dimg"] = max(err["dimg"], float((got - want).abs().max()))
-            log(f"grid_sample bwd [{n},{c},{h},{w}] {mode:10s}: d_grid "
-                f"max|kernel-plain|/max|plain| {e:.3g} (tol {DGRID_TOL}), d_img "
-                f"{ei:.3g} (tol {DIMG_TOL}), d_img run to run max|diff| "
-                f"{float((got - again).abs().max()):.3g}")
-
-    # time at the train shape: the warp of |aux| [4, 1, 320, 320], zeros
+    n, c, h, w = shape
+    px = n * h * w
     sets = []
-    for _ in range(10):  # 10 x 6.6 MB of inputs > 50 MB of L2
-        shape = (TRAIN_BATCH, 1, SHAPE, SHAPE)
+    for _ in range(int(60e6 // (8 * n * c * h * w + 8 * px)) + 2):
         sets.append((
             torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
-            sample_grid(rng, TRAIN_BATCH, SHAPE, SHAPE).to(dev),
+            sample_grid(rng, n, h, w).to(dev),
             torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
         ))
     aten = torch.ops.aten.grid_sampler_2d_backward
-    ms_grid, t_grid = time_all({
-        "plain": lambda i, gr, g: kgs.grid_sample_bwd_dgrid_plain(i, gr, g),
-        "kernel": lambda i, gr, g: kgs.grid_sample_bwd_dgrid_cuda(i, gr, g),
-        "library": lambda i, gr, g: aten(g, i, gr, 0, 0, False, [False, True]),
-    }, sets)
-    ms_img, t_img = time_all({
-        "plain": lambda i, gr, g: kgs.grid_sample_bwd_dimg_plain(gr, g, i.shape),
-        "kernel": lambda i, gr, g: kgs.grid_sample_bwd_dimg_cuda(gr, g, i.shape),
-        "library": lambda i, gr, g: aten(g, i, gr, 0, 0, False, [True, False]),
-    }, sets)
-    n, c, h, w = sets[0][0].shape
-    px = n * h * w
-    # d_grid: image, grid and upstream gradient read, d_grid written
-    b_grid = 4 * n * c * h * w + 8 * px + 4 * c * px + 8 * px
+    fns = {
+        "dgrid": {"plain": lambda i, gr, g: kgs.grid_sample_bwd_dgrid_plain(i, gr, g),
+                  "kernel": lambda i, gr, g: kgs.grid_sample_bwd_dgrid_cuda(i, gr, g),
+                  "library": lambda i, gr, g: aten(g, i, gr, 0, 0, False, [False, True])},
+        "dimg": {"plain": lambda i, gr, g: kgs.grid_sample_bwd_dimg_plain(gr, g, i.shape),
+                 "kernel": lambda i, gr, g: kgs.grid_sample_bwd_dimg_cuda(gr, g, i.shape),
+                 "library": lambda i, gr, g: aten(g, i, gr, 0, 0, False, [True, False])},
+    }
+    # d_grid: image, grid and upstream gradient read, d_grid written;
     # d_img: grid and upstream gradient read, d_img written
-    b_img = 8 * px + 4 * c * px + 4 * n * c * h * w
-    log(f"d_grid timing [4,1,320,320] zeros: {t_grid} ms ({b_grid / 1e6:.2f} MB)")
-    log(f"d_img timing [4,1,320,320] zeros: {t_img} ms ({b_img / 1e6:.2f} MB)")
-    return [
-        entry(kgs.DGRID, "grid_sample.cu", "grid_sample.py:451", err["dgrid"],
-              ms_grid, b_grid, px * (30 + 14 * c)),
-        entry(kgs.DIMG, "grid_sample.cu", "grid_sample.py:438", err["dimg"],
-              ms_img, b_img, px * (20 + 8 * c)),
-    ]
+    nbytes = {"dgrid": 4 * n * c * h * w + 8 * px + 4 * c * px + 8 * px,
+              "dimg": 8 * px + 4 * c * px + 4 * n * c * h * w}
+    flops = {"dgrid": px * (30 + 14 * c), "dimg": px * (20 + 8 * c)}
+    ms = {}
+    for name, f in fns.items():
+        if not plain:
+            f.pop("plain")
+        ms[name], times = time_all(f, sets)
+        log(f"{name} timing {list(shape)} zeros: {times} ms ({nbytes[name] / 1e6:.2f} MB, "
+            f"bound {bound(nbytes[name], flops[name])[0]:.5f} ms)")
+    return ms, nbytes, flops
+
+
+def profile_grid(shape, iters=10):
+    """Device us a launch of every kernel and memset that the d_grid and
+    the d_img wrapper each make at `shape` (torch.profiler, `iters` calls of
+    each alone), and launches a call: how each entry point's time splits.
+    Fails unless each shows a launch named after its kernel."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
+
+    rng = np.random.default_rng(0)
+    n, c, h, w = shape
+    img = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    grid = sample_grid(rng, n, h, w).cuda()
+    calls = {"dgrid": lambda: kgs.grid_sample_bwd_dgrid_cuda(img, grid, g),
+             "dimg": lambda: kgs.grid_sample_bwd_dimg_cuda(grid, g, img.shape)}
+    out = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        # a trace now and then comes back without device events: up to
+        # three tries
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    call()
+                torch.cuda.synchronize()
+            out[name] = {}
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                m = re.search(r"\b(\w+_kernel)\b", e.key)
+                key = m.group(1) if m else ("memset" if "memset" in e.key.lower() else e.key[:48])
+                out[name][key] = {"us": e.device_time, "a_call": e.count / iters}
+            if any(k.startswith(f"grid_sample_bwd_{name}") for k in out[name]):
+                break
+        else:
+            raise AssertionError(f"{name}: no launch of its kernel in the trace: {out[name]}")
+    log(f"grid_sample backward launches {list(shape)}, device us a launch over {iters} "
+        f"calls: {out}")
+    return out
+
+
+def dgrid_bits(path):
+    """d_grid on the inputs of grid_bwd_cases from seed 7 (its four shape
+    cases in each padding mode, the other six in zeros padding): written
+    to `path` where it is missing, else held bit for bit to what it holds
+    (a run from another tree: the parent's). Returns the number of
+    cases."""
+    import os
+
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
+
+    rng = np.random.default_rng(7)
+    cases = grid_bwd_cases(rng)
+    got = [kgs.grid_sample_bwd_dgrid_cuda(img, grid, g, mode).cpu()
+           for label, img, grid, g, _ in cases for mode in kgs.PADDING_MODES
+           if mode == "zeros" or label.startswith("[")]
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        torch.save(got, path)
+        log(f"d_grid bits: {len(got)} cases written to {path}")
+        return len(got)
+    want = torch.load(path)
+    same_bits(f"d_grid against {path}", [len(got)], got, want)
+    if len(got) != len(want):
+        raise AssertionError(f"d_grid bits: {len(got)} cases, {path} holds {len(want)}")
+    log(f"d_grid bits: the same bits as {path} on all {len(got)} cases")
+    return len(got)
 
 
 def check_ssim(rng):
@@ -605,11 +805,19 @@ def check_ssim(rng):
     ]
 
 
+def bits(t):
+    """The bytes of tensor `t`, so that equal means the same bits (NaNs
+    and the sign of 0 included)."""
+    import torch
+
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
 def same_bits(name, shape, got, again):
     """Fail unless a second run of a kernel gave the same bits."""
     import torch
 
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
         raise AssertionError(f"{name} {list(shape)}: the bits differ run to run")
 
 
@@ -1469,7 +1677,24 @@ def kernel_label(mangled):
     name = mangled[start:end]
     if mangled[end:end + 1] != "I":
         return name
-    return f"{name}<{','.join(re.findall(r'Li(\d+)E', mangled[end:]))}>"
+    # the template arguments up to their closing E: literals L<type><value>E
+    # (Li16E -> 16, Lb1E -> true), length-prefixed names, one-letter types
+    args, i, tail = [], end + 1, mangled
+    while i < len(tail) and tail[i] != "E":
+        if tail[i] == "L":
+            j = tail.index("E", i)
+            lit = tail[i + 1:j]
+            args.append({"b0": "false", "b1": "true"}.get(lit, lit[1:]))
+            i = j + 1
+        elif tail[i].isdigit():
+            m = re.match(r"\d+", tail[i:])
+            i += m.end()
+            args.append(tail[i:i + int(m.group())])
+            i += int(m.group())
+        else:
+            args.append({"f": "float", "i": "int", "b": "bool"}.get(tail[i], tail[i]))
+            i += 1
+    return f"{name}<{','.join(args)}>"
 
 
 # by source, the kernels that must run on the tensor cores and the HMMA
@@ -1482,9 +1707,9 @@ HMMA = {"conv.cu": {"conv3x3_tf32_kernel": "HMMA.1688.F32.TF32",
 # sources whose every kernel of the stem is one HMMA names: no conv kernel
 # off the tensor cores
 TENSOR_CORES_ONLY = {"conv.cu": "conv3x3"}
-# sources held to the build check: the HMMA ones, and the window losses'
-# (no HMMA required, no spill allowed)
-BUILD_CHECKED = (*HMMA, "lncc.cu", "ssim.cu")
+# sources held to the build check: the HMMA ones, the window losses' and
+# the grid sample's (no HMMA required, no spill allowed)
+BUILD_CHECKED = (*HMMA, "lncc.cu", "ssim.cu", "grid_sample.cu")
 
 
 def check_build(source, lib, compiler_log):
@@ -1899,6 +2124,39 @@ def loss_phases(fused_forwards=True):
         for side in (SHAPE, SHAPE // 2, SHAPE // 4):
             time_fwd_rows(rng, side)
     profile_losses(fused_forwards)
+    return 0
+
+
+GRID_SHAPES = ((TRAIN_BATCH, 1, SHAPE, SHAPE), (TRAIN_BATCH, 2, SHAPE, SHAPE),
+               (TRAIN_BATCH, 1, SHAPE // 2, SHAPE // 2))
+
+
+def grid_phases(checks=True, bits_file=None):
+    """The grid sample kernels' phases alone: the build check of
+    grid_sample.cu (each kernel's registers and spills), with `checks` the
+    forward and both backwards against their plain versions
+    (check_grid_sample, check_grid_sample_bwd), the backwards' times at
+    GRID_SHAPES with each launch's device us and launches a call
+    (torch.profiler), and with `bits_file` d_grid's bits written to or held
+    to that file (dgrid_bits). From a parent tree, with this file copied
+    in, run `grid_phases(False, ...)`: its d_img need not pass the checks.
+    Returns the process's exit code."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    log(f"card: {nvidia_smi()}")
+    check_build("grid_sample.cu", *build_kernels(["grid_sample.cu"])["grid_sample.cu"])
+    rng = np.random.default_rng(0)
+    if checks:
+        for e in (check_grid_sample(rng), *check_grid_sample_bwd(rng)):
+            log(json.dumps(e))
+    if bits_file:
+        dgrid_bits(bits_file)
+    for shape in GRID_SHAPES:
+        time_grid_bwd(rng, shape)
+        profile_grid(shape)
     return 0
 
 

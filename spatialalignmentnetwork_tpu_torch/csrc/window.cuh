@@ -1,6 +1,7 @@
 // What the window losses' kernels (lncc.cu, ssim.cu) share: cp.async
 // staging, odd row strides, the fused backwards' tile, and the forwards'
-// tile with its fixed-order block and plane sums.
+// tile with its fixed-order block and plane sums; grid_sample.cu's d_img
+// takes `launch_cooperative` from here too.
 //
 // Each of those sources is built alone into its own library, so these
 // definitions live in an unnamed namespace, one copy a library.

@@ -19,11 +19,15 @@ serves both devices.
 The backward follows JAX's autodiff of the JAX package's grid sample:
 floor-form tap derivatives, a tap outside the image reading 0 (as the
 Pallas tent does), and half the gradient at an exact clamp bound of the
-border/reflection transform.
+border/reflection transform. The d_img kernel sums in fixed point, so its
+bits do not depend on the order of its atomics:
+`grid_sample_bwd_dimg_fixed` is its arithmetic in torch, and
+`fixed_point_exponent` its choice of scale.
 """
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -35,6 +39,9 @@ DIMG = "grid_sample_bwd_dimg"
 SOURCE = "grid_sample.cu"
 PADDING_MODES = {"zeros": 0, "border": 1, "reflection": 2}
 _TAPS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (dx, dy), the kernels' order
+DIMG_TILE = 32  # the d_img kernel's output tile, DIMG_TILE x DIMG_TILE (kDimgTile)
+HEADROOM_BITS = 59  # a d_img plane's sum stays under 2^59 before the flag bits
+_POS_INF, _NEG_INF, _NAN = 1, 2, 4  # the flags in a d_img word's low three bits
 
 
 # ------------------------------------------------------------ plain versions
@@ -163,17 +170,75 @@ def grid_sample_bwd_dgrid_plain(img: torch.Tensor, grid: torch.Tensor,
 
 def grid_sample_bwd_dimg_plain(grid: torch.Tensor, gout: torch.Tensor,
                                size, padding_mode: str = "zeros") -> torch.Tensor:
-    """d_img [N, C, H, W] f32 (`size` is the image's shape): each output
-    pixel's upstream gradient scattered onto its four taps, weighted."""
+    """d_img [N, C, H, W] (`size` is the image's shape): each output
+    pixel's upstream gradient scattered onto its four taps, weighted, in
+    f32 (float64 for a float64 `gout`: the same f32 weights, exact
+    products)."""
     n, c, h, w = size
     taps, *_ = _taps(grid, h, w, padding_mode)
-    g = gout.to(torch.float32).reshape(n, c, -1)
-    dimg = torch.zeros((n, c, h * w), dtype=torch.float32, device=gout.device)
+    g = gout.to(torch.promote_types(gout.dtype, torch.float32)).reshape(n, c, -1)
+    dimg = torch.zeros((n, c, h * w), dtype=g.dtype, device=gout.device)
     for weight, inside, index in taps:
         weight = torch.where(inside, weight, 0.0).reshape(n, 1, -1)
         idx = index.reshape(n, 1, -1).expand(n, c, -1)
         dimg.scatter_add_(2, idx, g * weight)
     return dimg.reshape(n, c, h, w)
+
+
+def fixed_point_exponent(count: int, max_abs):
+    """The d_img kernel's scale 2^k for a plane of `count` output pixels
+    whose largest finite |g| is `max_abs` (a float, or a tensor of them):
+    k = HEADROOM_BITS - ceil(log2 count) - e, with max_abs = m 2^e, m in
+    [0.5, 1) (e = 0 for 0), so that count max_abs 2^k < 2^59. Each output
+    pixel adds g w (weight w <= 1) to a source pixel at most once, as 8
+    round(g w 2^k); so a source pixel's sum stays within 8 count (max_abs
+    2^k + 1/2) < 2^62 + 2^33, inside int64, and its low three bits stay
+    free for the non-finite flags."""
+    lg = (count - 1).bit_length()
+    if isinstance(max_abs, torch.Tensor):
+        e = torch.frexp(max_abs.to(torch.float64))[1].to(torch.int64)
+    else:
+        e = math.frexp(float(max_abs))[1]
+    return HEADROOM_BITS - lg - e
+
+
+def grid_sample_bwd_dimg_fixed(grid: torch.Tensor, gout: torch.Tensor, size,
+                               padding_mode: str = "zeros") -> torch.Tensor:
+    """d_img [N, C, H, W] f32 by the d_img kernel's arithmetic, in torch:
+    per plane the scale of `fixed_point_exponent`, each tap's contribution
+    8 round(g w 2^k) summed in int64 (`scatter_add_`, in any order: the
+    same bits), the non-finite contributions' flags (+inf, -inf, NaN) in
+    the low three bits, then f32(double(sum / 8) 2^-k) or the flagged
+    value. Nothing on the port's paths calls it: it shows on the CPU what
+    the kernel computes."""
+    n, c, h, w = size
+    count = grid.shape[1] * grid.shape[2]
+    taps, *_ = _taps(grid, h, w, padding_mode)
+    g = gout.to(torch.float32).reshape(n, c, -1)
+    finite = torch.isfinite(g)
+    g64 = torch.where(finite, g, 0.0).to(torch.float64)
+    k = fixed_point_exponent(count, g64.abs().amax(-1, keepdim=True))
+    scale = torch.ldexp(torch.ones_like(g64[..., :1]), k)
+    words = torch.zeros((n, c, h * w), dtype=torch.int64, device=g.device)
+    flags = {bit: torch.zeros_like(words) for bit in (_POS_INF, _NEG_INF, _NAN)}
+    for weight, inside, index in taps:
+        weight = torch.where(inside, weight, 0.0).reshape(n, 1, -1)
+        idx = index.reshape(n, 1, -1).expand(n, c, -1)
+        q = torch.round(g64 * weight.to(torch.float64) * scale).to(torch.int64)
+        words.scatter_add_(2, idx, q * 8)
+        flag = torch.where(torch.isnan(g) | (weight == 0), _NAN,
+                           torch.where(g > 0, _POS_INF, _NEG_INF))
+        for bit, acc in flags.items():
+            acc.scatter_reduce_(2, idx, torch.where(~finite & (flag == bit), bit, 0)
+                                .to(torch.int64), "amax")
+    words |= flags[_POS_INF] | flags[_NEG_INF] | flags[_NAN]
+    low = words & 7
+    value = (torch.div(words, 8, rounding_mode="floor").to(torch.float64)
+             * torch.ldexp(torch.ones_like(scale), -k)).to(torch.float32)
+    value = torch.where(low == _POS_INF, math.inf, value)
+    value = torch.where(low == _NEG_INF, -math.inf, value)
+    value = torch.where(((low & _NAN) != 0) | (low == (_POS_INF | _NEG_INF)), math.nan, value)
+    return value.reshape(n, c, h, w)
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -253,9 +318,19 @@ def grid_sample_bwd_dgrid_cuda(img: torch.Tensor, grid: torch.Tensor,
     return dgrid
 
 
+def dimg_scratch_words(size, ho: int, wo: int) -> int:
+    """int64 words of the d_img kernel's scratch: per plane its H W sums,
+    a largest |g| a DIMG_TILE x DIMG_TILE output tile and its scale."""
+    n, c, h, w = size
+    tiles = -(-ho // DIMG_TILE) * -(-wo // DIMG_TILE)
+    return n * c * (h * w + tiles + 1)
+
+
 def grid_sample_bwd_dimg_cuda(grid: torch.Tensor, gout: torch.Tensor, size,
                               padding_mode: str = "zeros") -> torch.Tensor:
-    """Launch the d_img kernel; returns d_img [N, C, H, W] f32 (`size`)."""
+    """Launch the d_img kernel; returns d_img [N, C, H, W] f32 (`size`),
+    the same bits on every run (see `grid_sample_bwd_dimg_fixed`). The
+    kernel writes every element and zeroes its own int64 scratch."""
     if padding_mode not in PADDING_MODES:
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     size = tuple(size)
@@ -263,9 +338,11 @@ def grid_sample_bwd_dimg_cuda(grid: torch.Tensor, gout: torch.Tensor, size,
     _check_gout(gout, size, grid)
     n, c, h, w = size
     _, ho, wo, _ = grid.shape
-    dimg = torch.zeros(size, dtype=torch.float32, device=grid.device)
-    launch(DIMG, _launcher("san_grid_sample_bwd_dimg", 3, 7), grid,
-           grid.data_ptr(), gout.data_ptr(), dimg.data_ptr(),
+    dimg = torch.empty(size, dtype=torch.float32, device=grid.device)
+    scratch = torch.empty(dimg_scratch_words(size, ho, wo), dtype=torch.int64,
+                          device=grid.device)
+    launch(DIMG, _launcher("san_grid_sample_bwd_dimg", 4, 7), grid,
+           grid.data_ptr(), gout.data_ptr(), dimg.data_ptr(), scratch.data_ptr(),
            n, c, h, w, ho, wo, PADDING_MODES[padding_mode])
     return dimg
 
