@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths, its
-registration-loss library and its 3x3 conv on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's serving and training paths (the Rec step and
+the reference's own Mixed protocol), its registration-loss library and its
+3x3 conv on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -55,9 +55,9 @@ failure:
      step, no d_img), every loss finite, net_T moved and reached by the
      warp's gradient; ms per step, slices/s, peak device memory;
   6. autograd on the card against the CPU: ssimloss(target, warp(img,
-     grid)) with both img and grid learnable, the path that launches the
-     d_img kernel;
-  7. one train step on the card against the same step on the CPU: the
+     grid)) with both img and grid learnable, the d_img kernel's path
+     outside the Mixed step;
+  7. one Rec train step on the card against the same step on the CPU: the
      losses, and every parameter's gradient held to the same step in
      float64 on the CPU;
   8. the registration losses at full width: lncc_loss, ms_lncc_loss,
@@ -78,7 +78,24 @@ failure:
      cuDNN's (`F.conv2d` on a channels-last view, TF32 off; a yardstick
      the port never calls), cuDNN's with TF32 on (f32; information for the
      nets' TF32 decision, not the yardstick) and its bound, and one
-     cascade's totals.
+     cascade's totals;
+ 10. the reference's Mixed recipe at full width (net_G 64..512, net_D
+     64..256, weight_gan 0.1, weight_gan_sim 1), batch 4: each step draws
+     phantoms at 352, runs PBSpline augmentation on the card (one shared
+     rigid + B-spline grid, a reflection-mode warp a modality), crops to
+     320, then set_input and update(); 2 warm-up and 3 timed steps, launch
+     counts reset just before and read just after (a step: 4
+     grid_sample forwards, 2 d_grid, 1 d_img, 1 SSIM forward and backward;
+     MIXED_LAUNCHES, PBSPLINE_LAUNCHES), every loss finite, every net moved;
+     ms per step, slices/s, peak device memory; then one GAN-Only step and
+     one Mixed step at grad_accum 2, each with its launch counts;
+     PBSpline augmentation at 352 on the card against the CPU from the same
+     draws (the grid, and the warped images from the same grid); one Mixed
+     step against the CPU as in phase 7, net_D's D-phase gradients
+     included, each net within STEP_GRAD_TOL of float64 (net_R's
+     sensitivity-net leaves within SENS_ILL_TOL where the draw's
+     sensitivity maps come below SENS_MIN). These draw their inputs
+     after every earlier phase, which keep theirs.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -136,7 +153,43 @@ GRAD_TOL = 2e-3
 # these runs (logged beside each check), the card's up to 4.6e-2. That the
 # warp's gradient reaches net_T at all is checked by check_train.
 STEP_GRAD_TOL = 1e-1
+# One rule for every regime's step. Where the sensitivity maps come near 0
+# before their normalisation, f32 cannot determine the sensitivity net's
+# gradients to STEP_GRAD_TOL on any device: its distance from float64
+# grows about as 1/min|sens| (the CPU's f32 step, on the phantoms these
+# checks draw: 1.9e-2 of net_R's max at min|sens| 2.7e-3, the Rec check;
+# 0.149 at 1.3e-4, the Mixed check). Below SENS_MIN the draw is called
+# ill-conditioned: net_R's `sens_net.` leaves are named and logged with
+# their f64 readings (the card's and the CPU's) and held to
+# SENS_ILL_TOL, fixed from the recorded readings on the Mixed check's
+# draw (H100 80GB HBM3, 700 W: the card 0.337, the CPU's f32 control
+# 0.149); every other leaf of every net stays at STEP_GRAD_TOL.
+SENS_MIN = 1e-3
+SENS_ILL_TOL = 0.5
 LOSS_RTOL = 1e-4
+# augmentation's planes: the reference crops its training slices from
+# volumes 1.1x the crop (PBSpline deforms the 352 plane, then crops 320)
+AUG_SHAPE = SHAPE * 11 // 10
+# an augmentation grid on the card against the CPU from the same draws:
+# cos, sin and the bicubic sums in another order (coordinates within 1)
+AUG_GRID_ATOL = 1e-6
+# launches of each kernel a step (no other kernel runs): a Mixed update
+# warps |aux| for net_R and the crossover's [aux_TR, G(aux_RT)] for
+# net_G, both with the grid's gradient (d_grid twice) and the second with
+# the image's, since G(aux_RT) learns (d_img once); one SSIM loss. A
+# GAN-Only update runs no net_R: only the crossover's warp and no SSIM.
+# A PBSpline batch warps each of its two modalities once, complex packed
+# as channels, in reflection mode, without gradients.
+MIXED_LAUNCHES = {"grid_sample_fwd": 2, "grid_sample_bwd_dgrid": 2,
+                  "grid_sample_bwd_dimg": 1, "ssim_fwd": 1, "ssim_bwd": 1}
+GAN_ONLY_LAUNCHES = {"grid_sample_fwd": 1, "grid_sample_bwd_dgrid": 1,
+                     "grid_sample_bwd_dimg": 1}
+PBSPLINE_LAUNCHES = {"grid_sample_fwd": 2}
+# parameters whose gradient a step makes exactly 0, so Adam leaves them:
+# the first cascade's dc_weight (its data term k - k_ref is 0, as the
+# cascades start from k_ref) and net_D's head bias (the hinge's fake and
+# real terms give it +1 and -1 a score while no score is clamped)
+STILL = {"net_R": {"cascades.0.dc_weight"}, "net_D": {"head.conv.bias"}}
 # registration losses, kernel vs plain on the card: the loss to 1e-5 (sums
 # in another order than cuDNN's and cuBLAS's), the gradients as a fraction
 # of the plain max |grad|
@@ -1330,67 +1383,62 @@ def train_cfg(shape=SHAPE):
     return cfg
 
 
-def grad_error(got, ref):
-    """Per net: (the worst leaf's max |got - ref| / the net's max |ref|,
-    that leaf's name)."""
+def mixed_cfg(shape=SHAPE, reg="Mixed", grad_accum=1):
+    """The reference's own recipe (commands_train_test.sh:29-32): the Rec
+    recipe with reg Mixed (the paper's method; GAN-Only pre-trains), gan
+    0.1, gan_sim 1, at CSModel's default widths (net_G 64..512, net_D
+    64..256)."""
+    cfg = train_cfg(shape)
+    cfg.reg = reg
+    cfg.weight_gan = 0.1
+    cfg.weight_gan_sim = 1.0
+    cfg.grad_accum = grad_accum
+    return cfg
+
+
+def add_counts(*counts):
+    """The sum of launch-count dicts, zero counts dropped."""
     out = {}
-    for name in ref:
-        net_max = max(float(g.abs().max()) for g in ref[name].values())
-        out[name] = max((float((got[name][k].double() - g).abs().max()) / net_max, k)
-                        for k, g in ref[name].items())
-    return out
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
 
 
-def rec_step_f64(cfg, entries, full, aux):
-    """Gradients of one Rec step on the CPU in float64 (nets, inputs and
-    every op but the warp, whose plain version computes in f32), without
-    the optimizer step; and the range of the sensitivity maps' magnitude
-    before their unit-magnitude normalisation."""
+def scaled(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def augmented_batch(full, aux, gen, device, shape):
+    """The reference's train-time input pipeline on `device`: PBSpline
+    augmentation of a (target, reference) pair of aug-size planes, then
+    the center crop to `shape` (engine/train.py:41-47 of the JAX
+    package)."""
     import torch
 
-    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
-    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
-    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
+    from spatialalignmentnetwork_tpu_torch.data.augment import augment_batch, draw
+    from spatialalignmentnetwork_tpu_torch.ops.crop import center_crop
 
-    model = CSModel(cfg=cfg, device="cpu", seed=0)
-    model.load_entries(entries)
-    model.net_T.to(torch.float64)
-    model.net_R.to(torch.float64)
-    model._nets_mode(train=True)
-    env = model._prepare(torch.from_numpy(full).to(torch.complex128),
-                         torch.from_numpy(aux).to(torch.complex128), model.pruned)
-    total, _ = model._regime_loss(env, "Rec")
-    total.backward()
-    with torch.no_grad():
-        k = env["img_k_sampled"]
-        acs = ifft2(k * acs_mask(k.shape[-1], model.num_low_frequencies)[None, None, None, :])
-        n, c, h, w = acs.shape
-        sens = rss(model.net_R.sens_net.norm_unet(acs.reshape(n * c, 1, h, w)))
-    grads = {name: {k: p.grad.detach() for k, p in getattr(model, name).named_parameters()}
-             for name in ("net_T", "net_R")}
-    return grads, (float(sens.min()), float(sens.median()), float(sens.max()))
+    pair = [torch.as_tensor(x, device=device) for x in (full, aux)]
+    out = augment_batch("PBSpline", pair, draw(gen, pair[0].shape[0], device))
+    return [center_crop(x, (shape, shape)) for x in out]
 
 
-def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
-    """WARMUP + TIMED Rec train steps at full width; returns the launch
-    counts of that run. (The CPU tests run it at a small shape on the CPU,
-    where no kernel launches.)"""
+def timed_steps(model, batches, prepare):
+    """WARMUP_STEPS + TIMED_STEPS of prepare(batch) -> set_input -> update;
+    returns (seconds of the timed steps, launch counts of all of them,
+    losses a step). CUDA events on a card, the host clock on the CPU."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch import kernels
-    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
 
-    model = CSModel(cfg=train_cfg(shape), device=device, seed=0)
-    model.load_entries(random_entries(model, rng))
-    batches = [phantoms(rng, batch, shape) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
-    before = [p.detach().clone() for p in model.net_T.parameters()]
     is_cuda = model.device.type == "cuda"
     if is_cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     losses = []
     kernels.reset_launches()
-    for i, (full, aux) in enumerate(batches):
+    for i, batch in enumerate(batches):
         if i == WARMUP_STEPS:
             if is_cuda:
                 torch.cuda.synchronize()
@@ -1398,7 +1446,7 @@ def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
             t0 = time.perf_counter()
-        model.set_input(full, aux)
+        model.set_input(*prepare(batch))
         model.update()
         losses.append(model._aux)
     if is_cuda:
@@ -1408,19 +1456,49 @@ def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     else:
         secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-
-    steps = len(batches)
     losses = [{k: float(v) for k, v in step.items()} for step in losses]
     for i, step in enumerate(losses):
-        log(f"train step {i}: {step}")
         if not all(np.isfinite(v) for v in step.values()):
-            raise AssertionError(f"train step {i}: non-finite loss {step}")
+            raise AssertionError(f"step {i}: non-finite loss {step}")
+    return secs, launches, losses
+
+
+def grad_error(got, ref, leaves=None):
+    """Per net: (the worst leaf's max |got - ref| / the net's max |ref|,
+    that leaf's name), over the leaves `leaves(net, leaf)` keeps (all by
+    default)."""
+    out = {}
+    for name in ref:
+        net_max = max(float(g.abs().max()) for g in ref[name].values())
+        errs = [(float((got[name][k].double() - g).abs().max()) / net_max, k)
+                for k, g in ref[name].items() if leaves is None or leaves(name, k)]
+        if errs:
+            out[name] = max(errs)
+    return out
+
+
+def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """WARMUP + TIMED Rec train steps at full width; returns the launch
+    counts of that run. (The CPU tests run it at a small shape on the CPU,
+    where no kernel launches.)"""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    model = CSModel(cfg=train_cfg(shape), device=device, seed=0)
+    model.load_entries(random_entries(model, rng))
+    batches = [phantoms(rng, batch, shape) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    before = [p.detach().clone() for p in model.net_T.parameters()]
+    secs, launches, losses = timed_steps(model, batches, lambda b: b)
+    steps = len(batches)
+    for i, step in enumerate(losses):
+        log(f"train step {i}: {step}")
     log(f"Rec train on {model.device}: batch {batch}, {shape}x{shape}, "
         f"{steps} steps ({WARMUP_STEPS} warm-up), "
         f"{secs * 1e3 / TIMED_STEPS:.2f} ms per step, "
         f"{TIMED_STEPS / secs:.3f} steps/s, {TIMED_STEPS * batch / secs:.2f} "
         f"slices/s; launches {launches}")
-    if is_cuda:
+    if model.device.type == "cuda":
         log(f"train peak device memory: "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
         want = {"grid_sample_fwd": steps, "grid_sample_bwd_dgrid": steps,
@@ -1435,7 +1513,7 @@ def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     # term) must give the STN head a gradient
     model.net_T.zero_grad(set_to_none=True)
     env = model._prepare(*model._batch, model.pruned)
-    _, step_losses = model._regime_loss(env, "Rec")
+    _, step_losses, _ = model._regime_loss(env, "Rec")
     step_losses["loss_sim"].backward()
     head = float(model.net_T.head.weight.grad.abs().max())
     log(f"net_T max |param change| {max(moved):.3g}; |d loss_sim / d head| "
@@ -1485,13 +1563,141 @@ def check_autograd(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     return launches
 
 
-def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2):
-    """One Rec step from the same weights on `device` and on the CPU, and
-    its gradients in f64 on the CPU: step-0 losses and every parameter's
-    gradient."""
+def check_mixed(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """The reference's Mixed recipe at full width: each step draws target
+    and reference phantoms at the augmentation plane, runs PBSpline
+    augmentation and the center crop on `device`, then set_input and
+    update(); WARMUP + TIMED steps. Returns the launch counts of that run.
+    (The CPU tests run it at a small shape on the CPU, where no kernel
+    launches.)"""
+    import torch
+
     from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
 
-    cfg = train_cfg(shape)
+    aug = shape * 11 // 10
+    model = CSModel(cfg=mixed_cfg(shape), device=device, seed=0)
+    model.load_entries(random_entries(model, rng))
+    nets = ("net_T", "net_G", "net_R", "net_D")
+    log("Mixed model params: " + ", ".join(
+        f"{n} {sum(p.numel() for p in getattr(model, n).parameters())}" for n in nets))
+    before = {n: [p.detach().clone() for p in getattr(model, n).parameters()] for n in nets}
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    batches = [phantoms(rng, batch, aug) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    secs, launches, losses = timed_steps(
+        model, batches, lambda b: augmented_batch(*b, gen, model.device, shape))
+    steps = len(batches)
+    for i, step in enumerate(losses):
+        log(f"Mixed step {i}: {step}")
+    log(f"Mixed train (PBSpline {aug}->{shape}) on {model.device}: batch {batch}, "
+        f"{steps} steps ({WARMUP_STEPS} warm-up), "
+        f"{secs * 1e3 / TIMED_STEPS:.2f} ms per step, {TIMED_STEPS / secs:.3f} "
+        f"steps/s, {TIMED_STEPS * batch / secs:.2f} slices/s; launches {launches}")
+    if model.device.type == "cuda":
+        log(f"Mixed train peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        want = scaled(add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), steps)
+        if launches != want:
+            raise AssertionError(f"Mixed launches {launches}, expected {want}")
+    moved, still = {}, {}
+    for n in nets:
+        change = {k: float((p.detach() - b).abs().max())
+                  for (k, p), b in zip(getattr(model, n).named_parameters(), before[n])}
+        moved[n] = min(v for k, v in change.items() if k not in STILL.get(n, ()))
+        still[n] = sorted(k for k, v in change.items() if v == 0)
+    log(f"Mixed: least max |param change| a tensor, per net: {moved}; tensors "
+        f"that did not move: {still}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"a net's parameters did not all move: {moved}")
+    return launches
+
+
+def check_gan_only_and_accum(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """One GAN-Only step and one Mixed step with grad_accum 2 at full width
+    (phantoms at `shape`, no augmentation), each after a warm-up step;
+    their launch counts and ms. Returns the launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    out = {}
+    for label, cfg, want in (
+            ("GAN-Only", mixed_cfg(shape, reg="GAN-Only"), GAN_ONLY_LAUNCHES),
+            ("Mixed grad_accum 2", mixed_cfg(shape, grad_accum=2),
+             scaled(MIXED_LAUNCHES, 2))):
+        model = CSModel(cfg=cfg, device=device, seed=0)
+        model.load_entries(random_entries(model, rng))
+        warm, step = phantoms(rng, batch, shape), phantoms(rng, batch, shape)
+        model.set_input(*warm)
+        model.update()
+        is_cuda = model.device.type == "cuda"
+        if is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        model.set_input(*step)
+        model.update()
+        launches = dict(kernels.LAUNCHES)
+        losses = model.get_vis("scalars")["scalars"]
+        if is_cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"{label} step on {model.device}: batch {batch}, {shape}x{shape}, "
+            f"{ms:.2f} ms (host clock, one step); losses {losses}; launches {launches}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        if is_cuda and launches != want:
+            raise AssertionError(f"{label} launches {launches}, expected {want}")
+        out[label] = launches
+    return add_counts(*out.values())
+
+
+def step_grads_f64(cfg, entries, full, aux):
+    """One step's gradients of every net it steps, on the CPU in float64
+    (nets, inputs and every op but the warp, whose plain version reads its
+    grid in f32); and the range of the sensitivity maps' magnitude before
+    their unit-magnitude normalisation."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
+    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
+
+    model = CSModel(cfg=cfg, device="cpu", seed=0)
+    model.load_entries(entries)
+    for name in ("net_T", "net_R", "net_G", "net_D"):
+        getattr(model, name).to(torch.float64)
+    model._batch = (torch.from_numpy(full).to(torch.complex128),
+                    torch.from_numpy(aux).to(torch.complex128))
+    model.update()
+    with torch.no_grad():
+        k = model._prepare(*model._batch, model.pruned)["img_k_sampled"]
+        acs = ifft2(k * acs_mask(k.shape[-1], model.num_low_frequencies)[None, None, None, :])
+        n, c, h, w = acs.shape
+        sens = rss(model.net_R.sens_net.norm_unet(acs.reshape(n * c, 1, h, w)))
+    return net_grads(model), (float(sens.min()), float(sens.median()), float(sens.max()))
+
+
+def net_grads(model):
+    """{net: {param: grad on the CPU}} of the nets the last step stepped."""
+    out = {}
+    for name in ("net_T", "net_R", "net_G", "net_D"):
+        grads = {k: p.grad for k, p in getattr(model, name).named_parameters()}
+        if all(g is not None for g in grads.values()):
+            out[name] = {k: g.detach().cpu() for k, g in grads.items()}
+    return out
+
+
+def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2, reg="Rec"):
+    """One train step of regime `reg` (the Rec recipe, or the reference's
+    for Mixed and GAN-Only) from the same weights on `device` and on the
+    CPU, and its gradients in f64 on the CPU: step-0 losses and the
+    gradient of every parameter of every net the step steps (net_D's from
+    the D-phase), at STEP_GRAD_TOL; on a draw where the sensitivity maps
+    come below SENS_MIN, net_R's sensitivity-net leaves at SENS_ILL_TOL."""
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import GRAD_NETS, CSModel
+
+    cfg = train_cfg(shape) if reg == "Rec" else mixed_cfg(shape, reg=reg)
     models = {dev: CSModel(cfg=cfg, device=dev, seed=0) for dev in (device, "cpu")}
     entries = random_entries(models["cpu"], rng)
     full, aux = phantoms(rng, batch, shape)
@@ -1503,31 +1709,89 @@ def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2):
         model.update()
         losses[dev] = model.get_vis("scalars")["scalars"]
         secs[dev] = time.perf_counter() - t0
-        grads[dev] = {
-            name: {k: p.grad.detach().cpu()
-                   for k, p in getattr(model, name).named_parameters()}
-            for name in ("net_T", "net_R")
-        }
+        grads[dev] = net_grads(model)
     t0 = time.perf_counter()
-    ref, sens = rec_step_f64(cfg, entries, full, aux)
+    ref, sens = step_grads_f64(cfg, entries, full, aux)
     secs["cpu f64"] = time.perf_counter() - t0
-    log(f"one Rec step, batch {batch}, {shape}x{shape}, {device} vs cpu: "
+    log(f"one {reg} step, batch {batch}, {shape}x{shape}, {device} vs cpu: "
         f"losses {losses[device]} vs {losses['cpu']} (rtol {LOSS_RTOL}); "
         f"step seconds {secs}; |sens| before normalisation min, median, "
         f"max {sens}")
+    stepped = set(GRAD_NETS[reg]) | ({"net_D"} if reg != "Rec" else set())
+    if not set(ref) == set(grads[device]) == stepped:
+        raise AssertionError(f"{reg} step gradients of {sorted(grads[device])}, "
+                             f"expected {sorted(stepped)}")
     for k, v in losses["cpu"].items():
         if not abs(losses[device][k] - v) <= LOSS_RTOL * abs(v):
-            raise AssertionError(f"step-0 {k}: {losses[device][k]} vs cpu {v}")
-    err = {dev: grad_error(grads[dev], ref) for dev in (device, "cpu")}
-    err["card vs cpu"] = grad_error(grads[device], grads["cpu"])
-    log(f"gradients, worst leaf's max |diff| / net's max |grad| (leaf): "
+            raise AssertionError(f"{reg} step-0 {k}: {losses[device][k]} vs cpu {v}")
+    def ill(name, leaf):  # leaves f32 cannot determine on this draw
+        return sens[0] < SENS_MIN and name == "net_R" and leaf.startswith("sens_net.")
+
+    def well(name, leaf):
+        return not ill(name, leaf)
+
+    err = {dev: grad_error(grads[dev], ref, well) for dev in (device, "cpu")}
+    err["card vs cpu"] = grad_error(grads[device], grads["cpu"], well)
+    log(f"{reg} gradients, worst leaf's max |diff| / net's max |grad| (leaf): "
         f"{device} f32 vs cpu f64 {err[device]} (tol {STEP_GRAD_TOL}); cpu "
         f"f32 vs cpu f64 {err['cpu']}; {device} vs cpu f32 "
         f"{err['card vs cpu']}")
-    for name, (e, leaf) in err[device].items():
-        if not e <= STEP_GRAD_TOL:
-            raise AssertionError(f"{name}: {device} gradients differ from "
-                                 f"f64 by {e} of the net's max at {leaf}")
+    ill_err = {dev: grad_error(grads[dev], ref, ill) for dev in (device, "cpu")}
+    if ill_err[device]:
+        named = sorted(k for k in ref["net_R"] if ill("net_R", k))
+        log(f"{reg} gradients of net_R's {len(named)} sensitivity-net leaves, "
+            f"ill-conditioned at min|sens| {sens[0]:.3g} < {SENS_MIN} "
+            f"({named[0]} ... {named[-1]}): {device} f32 vs cpu f64 "
+            f"{ill_err[device]['net_R']} (tol {SENS_ILL_TOL}); cpu f32 vs cpu "
+            f"f64 {ill_err['cpu']['net_R']}")
+    bars = [(err[device], STEP_GRAD_TOL), (ill_err[device], SENS_ILL_TOL)]
+    for errs, bar in bars:
+        for name, (e, leaf) in errs.items():
+            if not e <= bar:
+                raise AssertionError(f"{reg} {name}: {device} gradients differ from "
+                                     f"f64 by {e} of the net's max at {leaf} (bar {bar})")
+
+
+def check_augment(rng, device="cuda", shape=AUG_SHAPE, batch=TRAIN_BATCH):
+    """PBSpline augmentation of a phantom pair at the augmentation plane on
+    `device`, from draws of a generator there, against the CPU from the
+    same draws: the grid (AUG_GRID_ATOL), and each warped modality against
+    the CPU's warp with the same grid (F32_ATOL, the grid sample's bar);
+    the CPU's images from its own grid are logged beside. Returns the
+    launch counts of the device run."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.data import augment as aug
+    from spatialalignmentnetwork_tpu_torch.ops.grid_sample import warp
+
+    full, aux = phantoms(rng, batch, shape)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pair = [torch.as_tensor(x, device=dev) for x in (full, aux)]
+    kernels.reset_launches()
+    draws = aug.draw(gen, batch, dev)
+    got = aug.augment_batch("PBSpline", pair, draws)
+    launches = dict(kernels.LAUNCHES)
+    grid = aug.deformation(draws, pair[0].shape)
+    draws_cpu = {k: v.cpu() for k, v in draws.items()}
+    grid_cpu = aug.deformation(draws_cpu, pair[0].shape)
+    e_grid = float((grid.cpu() - grid_cpu).abs().max())
+    pair_cpu = [torch.from_numpy(x) for x in (full, aux)]
+    same_grid = [warp(x, grid.cpu(), padding_mode="reflection") for x in pair_cpu]
+    own = aug.augment_batch("PBSpline", pair_cpu, draws_cpu)
+    e_img = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, same_grid))
+    e_own = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, own))
+    log(f"PBSpline augmentation [{batch},1,{shape},{shape}] x 2 on {device} vs cpu: "
+        f"grid max|diff| {e_grid:.3g} (tol {AUG_GRID_ATOL}), images max|diff| "
+        f"{e_img:.3g} from the same grid (tol {F32_ATOL}), {e_own:.3g} from the "
+        f"cpu's own grid; launches {launches}")
+    if not (e_grid <= AUG_GRID_ATOL and e_img <= F32_ATOL):
+        raise AssertionError("augmentation: card and CPU differ")
+    if dev.type == "cuda" and launches != PBSPLINE_LAUNCHES:
+        raise AssertionError(f"augmentation launches {launches}, expected "
+                             f"{PBSPLINE_LAUNCHES}")
+    return launches
 
 
 def check_registration(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
@@ -2187,12 +2451,20 @@ def main():
     registration = check_registration(rng)[0]
     ladder = check_conv_ladder(rng)
     entries += time_conv_ladder(rng, conv_err)
+    # the GAN phases draw from the generator after every earlier phase, so
+    # that those keep the inputs they had before the GAN phases existed
+    mixed = check_mixed(rng)
+    main_paths.append(mixed)
+    check_gan_only_and_accum(rng)
+    check_augment(rng)
+    check_train_vs_cpu(rng, reg="Mixed")
     for e in entries:
-        # serving and training are the main paths; d_img runs on its own,
-        # the loss kernels on the registration-loss library's entry points,
-        # the conv on its own entry point's ladder
+        # serving and the Rec and Mixed train steps are the main paths (d_img
+        # runs on the Mixed one, and on its own); the loss kernels run on
+        # the registration-loss library's entry points, the conv on its own
+        # entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":
-            paths = [autograd]
+            paths = [autograd, mixed]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
         elif e["name"] in ("conv3x3", "conv3x3_bf16"):

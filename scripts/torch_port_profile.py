@@ -2,12 +2,15 @@
 """Where the PyTorch port's serving or training time goes on one NVIDIA GPU.
 
     python3 scripts/torch_port_profile.py [--batch 8] [--requests 3]
-    python3 scripts/torch_port_profile.py --train [--batch 4] [--requests 3]
+    python3 scripts/torch_port_profile.py --train [--reg Mixed] [--batch 4] [--requests 3]
 
 Builds the CSModel at the default widths (320 x 320, 1 coil, 4x
 equispaced) with the synthetic weights and phantoms of chip_smoke.py,
 warms it up, then profiles `--requests` reconstruct calls (or, with
---train, Rec train steps: set_input + update) with torch.profiler and
+--train, train steps of regime --reg: set_input + update; Rec by default,
+or Mixed with the reference's recipe and, as chip_smoke.py's Mixed phase,
+PBSpline augmentation of 352 planes cropped to 320, on the card, inside
+the profiled step) with torch.profiler and
 prints: slices/s, the device time by the category of the aten op that
 launched it, the top ops and kernels, and the device's idle share of the
 profiled window (one minus the union of kernel intervals over the
@@ -47,7 +50,9 @@ def main():
                     help="slices per request or step (8 serving, 4 training)")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--train", action="store_true",
-                    help="profile Rec train steps instead of serving")
+                    help="profile train steps instead of serving")
+    ap.add_argument("--reg", default="Rec", choices=("Rec", "Mixed"),
+                    help="the train steps' regime (with --train)")
     args = ap.parse_args()
     if args.batch is None:
         args.batch = 4 if args.train else 8
@@ -63,13 +68,20 @@ def main():
         raise SystemExit("no CUDA card available")
     print(f"card: {chip_smoke.nvidia_smi()}", flush=True)
     rng = np.random.default_rng(0)
-    cfg = chip_smoke.train_cfg() if args.train else chip_smoke.serving_cfg()
+    gan = args.train and args.reg == "Mixed"
+    if gan:
+        cfg = chip_smoke.mixed_cfg()
+    else:
+        cfg = chip_smoke.train_cfg() if args.train else chip_smoke.serving_cfg()
     model = CSModel(cfg=cfg, device="cuda", seed=0)
     model.load_entries(chip_smoke.random_entries(model, rng))
-    reqs = [chip_smoke.phantoms(rng, args.batch, cfg.shape)
-            for _ in range(args.requests)]
+    side = chip_smoke.AUG_SHAPE if gan else cfg.shape
+    reqs = [chip_smoke.phantoms(rng, args.batch, side) for _ in range(args.requests)]
+    gen = torch.Generator(device=model.device).manual_seed(0)
 
     def run(full, aux):
+        if gan:
+            full, aux = chip_smoke.augmented_batch(full, aux, gen, model.device, cfg.shape)
         if args.train:
             model.set_input(full, aux)
             model.update()
@@ -116,7 +128,7 @@ def main():
             by_cat[op_category(avg.key[len("aten::"):])] += avg.self_device_time_total
     by_cat["(no aten op: ctypes kernels)"] = total - sum(by_cat.values())
     n_slices = args.batch * args.requests
-    what = "train steps" if args.train else "requests"
+    what = f"{args.reg} train steps" if args.train else "requests"
     print(f"{args.requests} {what} x {args.batch} slices in {wall * 1e3:.1f} ms "
           f"host wall under the profiler: {n_slices / wall:.2f} slices/s")
     print(f"device kernel time {total / 1e3:.2f} ms "

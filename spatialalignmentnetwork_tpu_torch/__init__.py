@@ -9,13 +9,18 @@ built at first use and bound through `kernels/`.
 
 Layout:
     ops/       fft/rss, k-space masks, grid sampling, window sums, the
-               SSIM loss and the LNCC and MI registration losses
-    models/    VarNet + NormUnet, spatial transformer, LibUNet
+               SSIM loss and the LNCC and MI registration losses, center
+               crop, bicubic resize
+    models/    VarNet + NormUnet, spatial transformer, LibUNet (and the
+               Encoder, Decoder and ResNet factories), the GAN's
+               spectral-norm NetG and NetD
+    data/      augmentation (rigid + B-spline, the four batch policies)
     kernels/   ctypes bindings of the CUDA kernels, launch counts; the 3x3
                conv entry point `kernels.conv.conv3x3_s2d`
     csrc/      CUDA C++ sources (sm_90a)
     engine/    Config, checkpoint reading, weight carry-over from the JAX
-               package's checkpoints, the serving CSModel
+               package's checkpoints, the CSModel (serving and the four
+               train regimes)
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""CSModel: serving and the Rec / None train steps (counterpart of the JAX
+"""CSModel: serving and the four train regimes (counterpart of the JAX
 package's `engine/csmodel.py`).
 
 Serving reconstructs a slice from its own undersampled k-space, guided by
@@ -9,23 +9,42 @@ a reference modality aligned to it:
     warp         bilinear grid sample of |aux| (the CUDA kernel on a card)
     net_R        VarNet(k_sampled, mask, warped, num_low) -> rss image
 
-Training (`set_input` -> `update` -> `get_vis("scalars")`) runs the
-regimes "Rec" (net_T and net_R learn from loss_sim * weight_sim +
-loss_smooth * weight_smooth) and "None" (net_R alone learns from loss_sim;
-the grid is detached), with loss_sim the SSIM loss of the reconstruction
-against the fully sampled rss image (the CUDA SSIM kernels on a card) and
-loss_smooth the displacement field's smoothness. Each net has its own Adam,
-the counterpart of the JAX package's `optax.adamw(lr, weight_decay=0)`.
-net_G / net_D (regimes Mixed, GAN-Only), gradient accumulation, the bf16
-policy, LOUPE mask learning and per-cascade rematerialization wait for
-later slices; `update` refuses a cfg that asks for one of them.
+Training (`set_input` -> `update` -> `get_vis("scalars")`) runs regime
+cfg.reg, each net with its own Adam (the counterpart of the JAX package's
+`optax.adamw(lr, weight_decay=0)`):
+
+    None      net_R learns from loss_sim (the grid is detached)
+    Rec       net_T and net_R learn from loss_sim * weight_sim +
+              loss_smooth * weight_smooth
+    Mixed     net_T, net_G and net_R learn from Rec's terms +
+              loss_gan_sim * weight_gan_sim + loss_gan_G * weight_gan
+    GAN-Only  net_T and net_G learn from loss_smooth, loss_gan_sim and
+              loss_gan_G (net_R does not run)
+
+loss_sim is the SSIM loss of the reconstruction against the fully sampled
+rss image (the CUDA SSIM kernels on a card) and loss_smooth the
+displacement field's smoothness. The GAN regimes run forwardG's crossover:
+net_G synthesises the second half's target contrast from its reference,
+which is warped (the d_img kernel's train path), and the first half's
+warped reference is synthesised after the warp; loss_gan_sim is the L1
+distance of the aligned synthesis to the target, loss_gan_G net_D's score
+of it, through net_D but not into its weights. A second pass then steps
+net_D on the detached fake and the real target (loss_gan_Dfake,
+loss_gan_Dreal). BatchNorm statistics and spectral-norm vectors advance in
+the JAX call order: net_T, net_G twice, net_D once, then net_D on the fake
+and on the real image. With cfg.grad_accum > 1 the batch runs as that many
+micro-batches (each TR/RT half split alike in the GAN regimes), their
+gradients averaged into one step per net; BatchNorm statistics thread
+through the micro-batches, spectral-norm vectors restart from the step's
+own at each one. The bf16 policy, LOUPE mask learning and per-cascade
+rematerialization wait for later slices; `build` and `update` refuse a
+cfg that asks for one of them.
 
 Nets are built from the cfg keys of the JAX `CSModel.build`, and
 checkpoints go both ways in the JAX package's directory layout (`load`,
-`save`), with weights and Adam moments carried by `engine/from_jax.py`.
-What a loaded checkpoint holds for nets the port does not run yet (net_G
-and net_D, their Adam state, net_mask's own entries) is kept as loaded and
-written back by `save`.
+`save`), with weights, statistics and Adam moments carried by
+`engine/from_jax.py`. net_mask's entries other than `pruned` (the mask is
+fixed here) are kept as loaded and written back by `save`.
 
 The model lives on `device`, "cuda" unless the caller asks for "cpu"; with
 no card and no explicit "cpu" it raises rather than run on the CPU.
@@ -34,6 +53,7 @@ no card and no explicit "cpu" it raises rather than run on the CPU.
 import numpy as np
 import torch
 
+from ..models.gan import NetD, NetG, SpectralConv, loss_gan
 from ..models.stn import SpatialTransformer, gradient_loss, warp
 from ..models.varnet import VarNet
 from ..ops import masks as masks_lib
@@ -43,11 +63,17 @@ from . import from_jax
 from .checkpoint import ckpt_load, ckpt_save
 
 NET_NAMES = ("net_mask", "net_G", "net_D", "net_T", "net_R")
+NETS = ("net_G", "net_D", "net_T", "net_R")  # the modules CSModel builds
 
 # which nets receive gradients per training regime (the JAX package's
-# GRAD_NETS, engine/csmodel.py:121-126); the others wait for net_G / net_D
-GRAD_NETS = {"None": ("net_R",), "Rec": ("net_T", "net_R")}
-LATER_REGIMES = ("Mixed", "GAN-Only")
+# GRAD_NETS, engine/csmodel.py:121-126); net_D steps in its own pass
+GRAD_NETS = {
+    "None": ("net_R",),
+    "Rec": ("net_T", "net_R"),
+    "Mixed": ("net_T", "net_G", "net_R"),
+    "GAN-Only": ("net_T", "net_G"),
+}
+GAN_REGIMES = ("Mixed", "GAN-Only")
 
 
 def resolve_device(device) -> torch.device:
@@ -70,8 +96,14 @@ def f32_precision():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _with_zero_chan(x):
+    """cat a zero channel: net_D takes 2 channels, the second unused by the
+    live path (the JAX package's `_with_zero_chan`)."""
+    return torch.cat([x, torch.zeros_like(x)], dim=1)
+
+
 class CSModel:
-    """Facade owning net_T, net_R, their optimizers and the k-space mask."""
+    """Facade owning the four nets, their optimizers and the k-space mask."""
 
     def __init__(self, cfg=None, ckpt=None, device="cuda", seed=0):
         self.device = resolve_device(device)
@@ -118,18 +150,33 @@ class CSModel:
         # zero-init head => identity transform at init, as in training
         torch.nn.init.zeros_(self.net_T.head.weight)
         torch.nn.init.zeros_(self.net_T.head.bias)
-        self.net_T.to(self.device).eval()
-        self.net_R.to(self.device).eval()
-        # checkpoint entries (and opt_state keys) of nets the port does not
-        # run, kept as loaded so that `save` writes them back
-        self._carried = {}
-        self._carried_opt = {}
+        # net_G and net_D draw their xavier-normal weights and their u and v
+        # from a generator of their own
+        gan_gen = torch.Generator().manual_seed(
+            int(torch.randint(2**31, (1,), generator=gen)))
+        self.net_G = NetG(
+            layers=tuple(cfg.get("net_G_layers", (64, 128, 256, 512, 512))),
+            generator=gan_gen,
+        )
+        self.net_D = NetD(
+            blocks=tuple(tuple(b) for b in cfg.get(
+                "net_D_blocks",
+                ((64,) * 2, (128,) * 2, (256,) * 2, (256,) * 2, (256,) * 2),
+            )),
+            generator=gan_gen,
+        )
+        for name in NETS:
+            getattr(self, name).to(self.device).eval()
+        # net_mask's checkpoint entries other than `pruned`, and its
+        # opt_state keys, kept as loaded so that `save` writes them back
+        self._mask_entries = {}
+        self._mask_opt = {}
         self.opt = {
             name: torch.optim.Adam(
                 getattr(self, name).parameters(), lr=cfg.lr,
                 betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
             )
-            for name in ("net_T", "net_R")
+            for name in NETS
         }
         if pruned is None:
             pruned = masks_lib.make_mask(
@@ -159,10 +206,11 @@ class CSModel:
         return self.train(False)
 
     def _nets_mode(self, train: bool):
-        """Put net_T and net_R in train or eval mode, only on a change: a
+        """Put the nets in train or eval mode, only on a change: a
         `train()` walks all ~1000 modules, milliseconds of host time that
         the card would wait for at the start of every request."""
-        for net in (self.net_T, self.net_R):
+        for name in NETS:
+            net = getattr(self, name)
             if net.training != train:
                 net.train(train)
 
@@ -170,7 +218,9 @@ class CSModel:
     def _entries(self, name) -> list:
         if name == "net_T":
             return from_jax.stn_entries(self.net_T)
-        return from_jax.varnet_entries_of(self.net_R)
+        if name == "net_R":
+            return from_jax.varnet_entries_of(self.net_R)
+        return from_jax.snconv_entries(getattr(self, name))
 
     def load(self, ckpt, cfg=None):
         """Load a checkpoint directory the JAX `CSModel.save` (or `save`
@@ -182,66 +232,62 @@ class CSModel:
         self.load_entries(loaded)
 
     def load_entries(self, entries: dict):
-        """Set weights from JAX checkpoint entries {'net_T': flat, ...}; a
-        net whose weights load restarts its Adam, unless `opt_state` (the
-        JAX package's `save(with_opt=True)` entry) restores the moments.
-        net_G / net_D (not ported yet), net_mask's entries other than
-        `pruned`, and the `opt_state` keys of nets other than net_T and
-        net_R are kept as they are for `save`."""
+        """Set weights and statistics from JAX checkpoint entries
+        {'net_T': flat, ...}; a net whose weights load restarts its Adam,
+        unless `opt_state` (the JAX package's `save(with_opt=True)` entry)
+        restores the moments. net_mask's entries other than `pruned`, and
+        its `opt_state` keys, are kept as they are for `save`."""
         for name in entries:
             if name not in NET_NAMES and name != "opt_state":
                 raise KeyError(f"unknown checkpoint entry {name!r}")
-        for name in ("net_T", "net_R"):
+        for name in NETS:
             if name in entries:
                 from_jax.load_from_jax(
                     getattr(self, name), entries[name], self._entries(name)
                 )
                 self.opt[name].state.clear()
-        for name in ("net_G", "net_D"):
-            if name in entries:
-                self._carried[name] = dict(entries[name])
         mask_entry = entries.get("net_mask", {})
-        self._carried["net_mask"] = {k: v for k, v in mask_entry.items()
-                                     if k != "pruned"}
+        self._mask_entries = {k: v for k, v in mask_entry.items() if k != "pruned"}
         if "pruned" in mask_entry:
             self.pruned = torch.as_tensor(
                 np.asarray(mask_entry["pruned"]).astype(bool), device=self.device
             )
         if "opt_state" in entries:
             self._load_opt(entries["opt_state"])
-            self._carried_opt = {k: v for k, v in entries["opt_state"].items()
-                                 if k.split("/")[0] not in self.opt}
+            self._mask_opt = {k: v for k, v in entries["opt_state"].items()
+                              if k.startswith("net_mask/")}
 
     def save(self, path, with_opt=False):
-        """Write a checkpoint directory the JAX `CSModel` loads: net_T
-        (params and BatchNorm stats), net_R, net_mask (`pruned`), the
-        config, and net_G / net_D as loaded; with `with_opt`, the Adam
-        moments of net_T and net_R as the JAX package lays out its
-        `opt_state` (optax's mu, nu, count for torch's exp_avg,
-        exp_avg_sq, step) beside the loaded `opt_state` of the other nets.
-
-        The JAX `load` wants the optimizer state of every net it has. The
-        port makes none for net_G and net_D (ROADMAP queue 1 item 3), so
-        `with_opt` needs a loaded checkpoint that carried `opt_state`, and
-        raises NotImplementedError otherwise."""
-        if with_opt and not self._carried_opt:
-            raise NotImplementedError(
-                "save(with_opt=True) needs the opt_state of net_G, net_D and "
-                "net_mask from a loaded checkpoint: the port does not build "
-                "net_G and net_D yet (ROADMAP queue 1 item 3)"
-            )
-        ckpt = dict(self._carried)
-        for name in ("net_T", "net_R"):
+        """Write a checkpoint directory the JAX `CSModel` loads: the four
+        nets (params, and the BatchNorm statistics and spectral-norm
+        vectors as `stats`), net_mask (`pruned` and its other entries as
+        loaded) and the config; with `with_opt`, every net's Adam moments
+        as the JAX package lays out its `opt_state` (optax's mu, nu, count
+        for torch's exp_avg, exp_avg_sq, step), and net_mask's as loaded,
+        or as the JAX package initialises them (count 0, zero moments)."""
+        ckpt = {}
+        for name in NETS:
             sd = getattr(self, name).state_dict()
             tensors = {k: v for k, v in sd.items()
                        if not k.endswith("num_batches_tracked")}
             ckpt[name] = from_jax.to_jax_entries(tensors, self._entries(name))
-        ckpt["net_mask"] = {**self._carried.get("net_mask", {}),
-                            "pruned": self.pruned.cpu().numpy()}
+        ckpt["net_mask"] = {**self._mask_entries, "pruned": self.pruned.cpu().numpy()}
         if with_opt:
-            ckpt["opt_state"] = {**self._carried_opt, **self._opt_entries()}
+            ckpt["opt_state"] = {**self._fresh_mask_opt(), **self._mask_opt,
+                                 **self._opt_entries()}
         ckpt["config"] = self.cfg
         ckpt_save(ckpt, path)
+
+    def _fresh_mask_opt(self) -> dict:
+        """net_mask's `opt_state` as a fresh JAX build holds it: count 0 and
+        zero moments for each of its params."""
+        out = {"net_mask/0/count": np.array(0, np.int32)}
+        for key, a in self._mask_entries.items():
+            if key.startswith("params/"):
+                for slot in ("mu", "nu"):
+                    out[f"net_mask/0/{slot}/{key[len('params/'):]}"] = np.zeros_like(
+                        np.asarray(a, np.float32))
+        return out
 
     def _param_entries(self, name) -> list:
         return [e for e in self._entries(name) if e[1].startswith("params/")]
@@ -266,8 +312,7 @@ class CSModel:
         return out
 
     def _load_opt(self, flat: dict):
-        """Restore Adam's state of net_T and net_R from an `opt_state`
-        entry (the other nets' keys are for nets not ported yet)."""
+        """Restore every net's Adam state from an `opt_state` entry."""
         for name, opt in self.opt.items():
             prefix = f"{name}/0/"
             if prefix + "count" not in flat:
@@ -314,24 +359,39 @@ class CSModel:
             "img_aux_rss": rss(img_aux),
         }
 
-    def _forward_TR(self, env, stop_T=False):
-        """net_T -> warp -> net_R; returns (offset, img_rec). With stop_T
-        the offset and grid carry no gradient (regime None)."""
+    def _forward_TGR(self, env, with_G=False, with_R=True, stop_T=False) -> dict:
+        """net_T -> warp [-> forwardG] [-> net_R]; returns {"offset",
+        ["img_aligned",] ["img_rec"]}. With stop_T the offset and grid
+        carry no gradient (regime None).
+
+        forwardG is the JAX package's batch-halving crossover: net_G
+        synthesises the second half's target contrast from its reference,
+        T = G(aux_RT), which is warped with the first half's reference,
+        R; then TR = G(R). img_aligned = cat([TR, RT])."""
         aux_abs = env["img_aux"].abs()
         sampled_abs = env["img_sampled"].abs()
         with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_T):
             offset, grid = self.net_T(aux_abs, sampled_abs)
-        img_warped = warp(aux_abs, grid)
-        mask = torch.logical_not(self.pruned)[None, None, None, :]
-        img_rec = self.net_R(
-            env["img_k_sampled"], mask, img_warped, self.num_low_frequencies
-        )
-        return offset, img_rec
+        out = {"offset": offset}
+        if with_R:
+            img_warped = warp(aux_abs, grid)
+        if with_G:
+            aux_rss = env["img_aux_rss"]
+            n1 = (aux_rss.shape[0] + 1) // 2
+            synth = self.net_G(aux_rss[n1:])
+            warped_all = warp(torch.cat([aux_rss[:n1], synth]), grid)
+            out["img_aligned"] = torch.cat([self.net_G(warped_all[:n1]), warped_all[n1:]])
+        if with_R:
+            mask = torch.logical_not(self.pruned)[None, None, None, :]
+            out["img_rec"] = self.net_R(
+                env["img_k_sampled"], mask, img_warped, self.num_low_frequencies
+            )
+        return out
 
     def recon_step(self, img_full, img_aux):
         """The eval-mode serving computation on device tensors."""
         env = self._prepare(img_full, img_aux, self.pruned)
-        return self._forward_TR(env)[1]
+        return self._forward_TGR(env)["img_rec"]
 
     def reconstruct(self, img_full, img_aux=None):
         """Serving path: undersample per the model's mask and reconstruct.
@@ -352,55 +412,148 @@ class CSModel:
         self._batch = self._to_device(img_full, img_aux)
 
     def _regime_loss(self, env, regime):
-        """The JAX package's `_regime_loss` for Rec and None; returns
-        (total, losses)."""
-        offset, img_rec = self._forward_TR(env, stop_T=(regime == "None"))
-        losses = {
-            "loss_smooth": gradient_loss(offset),
-            "loss_sim": ssimloss(env["img_full_rss"], img_rec),
-        }
-        total = losses["loss_sim"] * self.cfg.weight_sim
+        """The JAX package's `_regime_loss`, the G-phase loss: the weighted
+        sim, smooth and gan_sim terms, and the generator's adversarial term
+        through net_D (train mode: its spectral-norm vectors advance).
+        Returns (total, losses, img_aligned or None)."""
+        cfg = self.cfg
+        with_G = regime in GAN_REGIMES
+        with_R = regime in ("None", "Rec", "Mixed")
+        out = self._forward_TGR(env, with_G, with_R, stop_T=(regime == "None"))
+        losses = {"loss_smooth": gradient_loss(out["offset"])}
+        total = 0.0
+        if with_R:
+            losses["loss_sim"] = ssimloss(env["img_full_rss"], out["img_rec"])
+            total = total + losses["loss_sim"] * cfg.weight_sim
         if regime != "None":
-            total = total + losses["loss_smooth"] * self.cfg.weight_smooth
+            total = total + losses["loss_smooth"] * cfg.weight_smooth
+        if with_G:
+            aligned = out["img_aligned"]
+            losses["loss_gan_sim"] = torch.mean(torch.abs(aligned - env["img_full_rss"]))
+            total = total + losses["loss_gan_sim"] * cfg.weight_gan_sim
+            pred_fake = self.net_D(_with_zero_chan(aligned))
+            losses["loss_gan_G"] = loss_gan(pred_fake, real=False, D_loss=False)
+            total = total + losses["loss_gan_G"] * cfg.weight_gan
         losses["loss_all"] = total
-        return total, losses
+        return total, losses, out.get("img_aligned")
 
-    def update(self):
-        """One train step of regime cfg.reg on the batch of `set_input`:
-        net_T's BatchNorm statistics update, the regime's nets take one
-        Adam step."""
+    def _d_phase_loss(self, img_aligned, img_full_rss):
+        """The second pass: net_D on the detached fake, then on the real
+        image. Returns (total, loss_fake, loss_real)."""
+        pred_fake = self.net_D(_with_zero_chan(img_aligned.detach()))
+        pred_real = self.net_D(_with_zero_chan(img_full_rss))
+        lf = loss_gan(pred_fake, real=False, D_loss=True)
+        lr = loss_gan(pred_real, real=True, D_loss=True)
+        return (lf + lr) * self.cfg.weight_gan, lf, lr
+
+    def _step_grads(self, env, regime, params):
+        """One (micro-)batch's gradients {net: [grad a param]} and losses.
+        The G-phase differentiates the regime's nets alone (net_D's weights
+        get nothing from it, as in the JAX step); the D-phase, in the GAN
+        regimes, net_D alone."""
+        names = GRAD_NETS[regime]
+        total, losses, aligned = self._regime_loss(env, regime)
+        flat = [p for name in names for p in params[name]]
+        grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
+        out = {name: [next(grads) for _ in params[name]] for name in names}
+        if aligned is not None:
+            d_total, losses["loss_gan_Dfake"], losses["loss_gan_Dreal"] = (
+                self._d_phase_loss(aligned, env["img_full_rss"]))
+            out["net_D"] = list(torch.autograd.grad(d_total, params["net_D"]))
+        for name in out:  # a parameter the loss does not reach: zero, as jax.grad
+            out[name] = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params[name], out[name])]
+        return out, losses
+
+    def _micro_batches(self, accum, gan):
+        """The batch of `set_input` as `accum` micro-batches: consecutive
+        rows, or in the GAN regimes slice i of each TR/RT half, so that
+        each micro-batch pairs its halves as the full batch does."""
+        full, aux = self._batch
+        if accum == 1:
+            return [(full, aux)]
+        n = full.shape[0]
+        m = n // accum
+        if not gan:
+            return [(full[i * m:(i + 1) * m], aux[i * m:(i + 1) * m])
+                    for i in range(accum)]
+        half, m2 = n // 2, m // 2
+
+        def part(x, i):
+            return torch.cat([x[i * m2:(i + 1) * m2], x[half + i * m2:half + (i + 1) * m2]])
+
+        return [(part(full, i), part(aux, i)) for i in range(accum)]
+
+    def _spectral_convs(self):
+        return [m for name in ("net_G", "net_D")
+                for m in getattr(self, name).modules() if isinstance(m, SpectralConv)]
+
+    def _check_step(self, regime, accum):
+        """The refusals of `update`, before anything moves."""
         if not self.training:
             raise RuntimeError("update() needs train mode (call train())")
         if self._batch is None:
             raise RuntimeError("update() needs a batch (call set_input())")
-        regime = self.cfg.reg
-        if regime in LATER_REGIMES:
-            raise NotImplementedError(
-                f"regime {regime!r} needs net_G and net_D, which a later "
-                "slice of the port brings"
-            )
         if regime not in GRAD_NETS:
             raise ValueError(f"unknown regime {regime!r}")
-        if int(self.cfg.get("grad_accum", 1)) > 1:
-            raise NotImplementedError(
-                f"grad_accum={self.cfg.get('grad_accum')}: micro-batch gradient "
-                "accumulation is not ported yet (ROADMAP queue 1 item 3)"
-            )
         # the JAX package's condition (its csmodel.py:592)
         if self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False)):
             raise NotImplementedError(
                 "learn_mask with a LOUPE mask: mask learning is not ported yet "
                 "(ROADMAP queue 1 item 6)"
             )
+        n = self._batch[0].shape[0]
+        if regime in GAN_REGIMES and n // accum < 2:
+            # forwardG halves the batch: batch 1 would push an empty half
+            # through net_G's BatchNorm and poison net_G with NaN while every
+            # reported loss stays finite (the JAX package's guard)
+            raise ValueError(
+                f"{regime} regime needs >= 2 samples per (micro-)batch for the "
+                f"forwardG crossover; got batch {n} with grad_accum {accum}"
+            )
+        if accum > 1:
+            if bool(self.cfg.get("learn_mask", False)):
+                raise ValueError("grad_accum does not route gradients to the LOUPE "
+                                 "mask; disable learn_mask or grad_accum")
+            if n % accum:
+                raise ValueError(f"batch {n} does not split into {accum} micro-batches")
+            if regime in GAN_REGIMES and (n // accum) % 2:
+                raise ValueError(
+                    f"GAN-regime micro-batches must be even for the forwardG "
+                    f"crossover: batch {n} / accum {accum} = {n // accum}")
+
+    def update(self):
+        """One train step of regime cfg.reg on the batch of `set_input`:
+        the regime's nets take one Adam step on the G-phase's gradients
+        and, in the GAN regimes, net_D one on the D-phase's, averaged over
+        cfg.grad_accum micro-batches; BatchNorm statistics and spectral-norm
+        vectors advance as they run."""
+        regime = self.cfg.reg
+        accum = int(self.cfg.get("grad_accum", 1))
+        self._check_step(regime, accum)
+        gan = regime in GAN_REGIMES
+        names = GRAD_NETS[regime] + (("net_D",) if gan else ())
+        params = {name: list(getattr(self, name).parameters()) for name in names}
         self._nets_mode(train=True)
-        env = self._prepare(*self._batch, self.pruned)
-        total, losses = self._regime_loss(env, regime)
-        for name in GRAD_NETS[regime]:
-            self.opt[name].zero_grad(set_to_none=True)
-        total.backward()
-        for name in GRAD_NETS[regime]:
+        sn_start = ([(m.weight_u.clone(), m.weight_v.clone()) for m in self._spectral_convs()]
+                    if accum > 1 else None)
+        sums, step_losses = None, []
+        for full, aux in self._micro_batches(accum, gan):
+            if sn_start is not None:  # each micro-batch from the step's u, v
+                for m, (u, v) in zip(self._spectral_convs(), sn_start):
+                    m.weight_u.copy_(u)
+                    m.weight_v.copy_(v)
+            grads, losses = self._step_grads(self._prepare(full, aux, self.pruned),
+                                             regime, params)
+            step_losses.append({k: v.detach() for k, v in losses.items()})
+            sums = grads if sums is None else {
+                name: [a + b for a, b in zip(sums[name], grads[name])] for name in sums}
+        for name in names:
+            for p, g in zip(params[name], sums[name]):
+                p.grad = g / accum if accum > 1 else g
             self.opt[name].step()
-        self._aux = {k: v.detach() for k, v in losses.items()}
+        self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
+                     for k in step_losses[0]}
 
     def get_vis(self, content="scalars"):
         """The last step's losses as {'scalars': {'loss_*': float}}."""

@@ -19,6 +19,10 @@ the reference torch names that module maps:
   * LibUNet's `Conv_k` / `BatchNorm_k` are numbered in call order through
     the recursion, which is the port's registration order; flax BatchNorm
     scale/bias/mean/var become weight/bias/running_mean/running_var.
+  * NetG's and NetD's `SNConv_k` are numbered in call order too: each one's
+    `BatchNorm_0` is its `bn`, its `SpectralConv_0` kernel and bias are the
+    conv's `weight_orig` and `bias`, and the power-iteration vectors u and
+    v (stats, torch's layout in both) are `weight_u` and `weight_v`.
 
 An entry list holds (torch_key, jax_key, cascade_index or None, kind),
 kind one of "conv", "convT", "same". The same lists carry the port's
@@ -87,13 +91,49 @@ def stn_entries(module: nn.Module) -> list:
         entries.append((f"{name}.weight", f"params/{slot}/kernel", None, "conv"))
         entries.append((f"{name}.bias", f"params/{slot}/bias", None, "same"))
     for i, name in enumerate(bns):
-        slot = f"LibUNet_0/BatchNorm_{i}"
+        entries += _bn_entries(name, f"LibUNet_0/BatchNorm_{i}")
+    return entries
+
+
+def _bn_entries(torch_name: str, slot: str) -> list:
+    return [
+        (f"{torch_name}.weight", f"params/{slot}/scale", None, "same"),
+        (f"{torch_name}.bias", f"params/{slot}/bias", None, "same"),
+        (f"{torch_name}.running_mean", f"stats/{slot}/mean", None, "same"),
+        (f"{torch_name}.running_var", f"stats/{slot}/var", None, "same"),
+    ]
+
+
+def snconv_entries(module: nn.Module) -> list:
+    """Entries of a NetG or NetD (models/gan.py), its SNConv modules
+    zipped in call order with flax's `SNConv_k`."""
+    from ..models.gan import SNConv
+
+    entries = []
+    snconvs = [(n, m) for n, m in module.named_modules() if isinstance(m, SNConv)]
+    for k, (name, snconv) in enumerate(snconvs):
+        slot = f"SNConv_{k}"
+        if snconv.bn is not None:
+            entries += _bn_entries(f"{name}.bn", f"{slot}/BatchNorm_0")
+        conv = f"{slot}/SpectralConv_0"
         entries += [
-            (f"{name}.weight", f"params/{slot}/scale", None, "same"),
-            (f"{name}.bias", f"params/{slot}/bias", None, "same"),
-            (f"{name}.running_mean", f"stats/{slot}/mean", None, "same"),
-            (f"{name}.running_var", f"stats/{slot}/var", None, "same"),
+            (f"{name}.conv.weight_orig", f"params/{conv}/kernel", None, "conv"),
+            (f"{name}.conv.bias", f"params/{conv}/bias", None, "same"),
+            (f"{name}.conv.weight_u", f"stats/{conv}/u", None, "same"),
+            (f"{name}.conv.weight_v", f"stats/{conv}/v", None, "same"),
         ]
+    return entries
+
+
+def conv_entries(module: nn.Module) -> list:
+    """Entries of a norm-free conv net (`models/unet_lib.py`'s Encoder,
+    Decoder and ResNet): its Conv2d modules zipped in call order with
+    flax's `Conv_k`."""
+    convs = [n for n, m in module.named_modules() if isinstance(m, nn.Conv2d)]
+    entries = []
+    for k, name in enumerate(convs):
+        entries.append((f"{name}.weight", f"params/Conv_{k}/kernel", None, "conv"))
+        entries.append((f"{name}.bias", f"params/Conv_{k}/bias", None, "same"))
     return entries
 
 

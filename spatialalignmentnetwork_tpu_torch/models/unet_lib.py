@@ -1,6 +1,6 @@
 """Recursive U-Net with BatchNorm + LeakyReLU(0.01) (counterpart of the JAX
-package's `models/unet_lib.py::LibUNet`; Encoder, Decoder and ResNet are
-not ported yet).
+package's `models/unet_lib.py`: LibUNet, and the library factories
+Encoder, Decoder and ResNet, which no path of the package calls).
 
 Every level nests the next and returns cat([f(x), x]) on channels:
 avg-pool + 1x1 conv down, residual conv stacks, nearest-upsample + 1x1
@@ -107,3 +107,116 @@ class LibUNet(nn.Module):
         x = self.inner(x)
         x = self.tail_res(self.tail(x))
         return self.out(x)
+
+
+def _cna(in_ch: int, out_ch: int) -> nn.Module:
+    """conv3x3 (with bias) -> LeakyReLU(0.01), norm-free."""
+    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.01))
+
+
+class _CnaRes(nn.Module):
+    """x + (conv3x3 -> LeakyReLU)^2(x)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.body = nn.Sequential(_cna(ch, ch), _cna(ch, ch))
+
+    def forward(self, x):
+        return x + self.body(x)
+
+
+class Encoder(nn.Module):
+    """Feature-pyramid encoder: a conv + LeakyReLU stem and a residual
+    block a level, avg-pool between levels, a last conv at the deepest
+    level; returns the features of every level, shallowest first."""
+
+    def __init__(self, in_chans: int, layers: Sequence[int]):
+        super().__init__()
+        chs = list(layers)
+        if len(chs) < 2:
+            raise ValueError(f"an Encoder needs at least 2 levels, got {chs}")
+        self.levels = nn.ModuleList()
+        prev = in_chans
+        for i, ch in enumerate(chs):
+            last = i == len(chs) - 1
+            self.levels.append(_cna(prev, ch) if last
+                               else nn.Sequential(_cna(prev, ch), _CnaRes(ch)))
+            prev = ch
+
+    def forward(self, x):
+        feats = []
+        for i, level in enumerate(self.levels):
+            if i > 0:
+                x = avg_pool2(x)
+            x = level(x)
+            feats.append(x)
+        return feats
+
+
+class Decoder(nn.Module):
+    """Bridged decoder over an encoder's features (shallowest first, of
+    `bridges` channels): from the deepest level up, cat the bridge, conv +
+    LeakyReLU, a residual block, then a nearest upsample, or at level 0 a
+    plain conv3x3 to `out_chans`."""
+
+    def __init__(self, out_chans: int, layers: Sequence[int], bridges: Sequence[int]):
+        super().__init__()
+        layers, bridges = list(layers), list(bridges)
+        if len(layers) != len(bridges):
+            raise ValueError(f"{len(layers)} layers for {len(bridges)} bridges")
+        self.levels = nn.ModuleList()
+        prev = 0
+        for level in reversed(range(len(layers))):
+            ch = layers[level]
+            self.levels.append(nn.Sequential(_cna(prev + bridges[level], ch), _CnaRes(ch)))
+            prev = ch
+        self.out = nn.Conv2d(layers[0], out_chans, 3, padding=1)
+
+    def forward(self, bridges):
+        x = None
+        for i, (level, bridge) in enumerate(zip(self.levels, reversed(bridges))):
+            x = bridge if x is None else torch.cat([x, bridge], dim=1)
+            x = level(x)
+            if i < len(self.levels) - 1:
+                x = upsample_nearest2(x)
+        return self.out(x)
+
+
+class ResBlock(nn.Module):
+    """LeakyReLU, then conv3x3 -> LeakyReLU -> conv3x3 beside a shortcut
+    (a 1x1 conv where the channels change) of the activated input."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv_a = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv_b = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.shortcut = None if in_ch == out_ch else nn.Conv2d(in_ch, out_ch, 1)
+
+    def forward(self, x):
+        y = F.leaky_relu(x, 0.01)
+        z = self.conv_b(F.leaky_relu(self.conv_a(y), 0.01))
+        return (y if self.shortcut is None else self.shortcut(y)) + z
+
+
+class ResNet(nn.Module):
+    """Plain conv ResNet: conv3x3(in -> c0), a chain of ResBlocks, with
+    `res` a long shortcut around the chain (a 1x1 conv where c0 != c_last),
+    LeakyReLU, conv3x3(c_last -> out)."""
+
+    def __init__(self, in_chans: int, out_chans: int,
+                 channels: Sequence[int] = (64, 64, 64, 64), res: bool = False):
+        super().__init__()
+        chs = list(channels)
+        self.stem = nn.Conv2d(in_chans, chs[0], 3, padding=1)
+        self.blocks = nn.Sequential(*(ResBlock(a, b) for a, b in zip(chs[:-1], chs[1:])))
+        self.res = res
+        self.long_shortcut = (nn.Conv2d(chs[0], chs[-1], 1)
+                              if res and chs[0] != chs[-1] else None)
+        self.out = nn.Conv2d(chs[-1], out_chans, 3, padding=1)
+
+    def forward(self, x):
+        x = self.stem(x)
+        y = self.blocks(x)
+        if self.res:
+            y = y + (x if self.long_shortcut is None else self.long_shortcut(x))
+        return self.out(F.leaky_relu(y, 0.01))

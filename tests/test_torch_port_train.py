@@ -20,12 +20,13 @@ so both start from the same weights, BatchNorm statistics and mask. Then:
     step, so it also carries that bias's noise: atol lr).
   * checkpoints both ways: the port's save loads in the JAX CSModel, and a
     JAX `save(with_opt=True)` resumes in the port with Adam's moments; the
-    port's `save(with_opt=True)` of it loads in the JAX CSModel with every
-    optimizer key, and net_G / net_D survive load-then-save bit for bit.
-  * what the port does not run yet (gradient accumulation, LOUPE mask
-    learning, the optimizer state of a model built without a checkpoint)
-    is refused, not silently dropped.
-  * `chip_smoke.py`'s train and autograd phases run on the CPU.
+    port's `save(with_opt=True)` of it, or of a model built from a cfg,
+    loads in the JAX CSModel with every optimizer key, and net_G / net_D
+    go through the port's modules on load-then-save bit for bit.
+  * `grad_accum=2` on rows whose micro-batches repeat the full batch takes
+    the full-batch step; an unknown regime, a GAN regime at batch 1 and
+    LOUPE mask learning (not ported yet) are refused, not silently run.
+  * `chip_smoke.py`'s train, autograd and GAN phases run on the CPU.
 
 Inputs come from numpy seeds.
 """
@@ -218,9 +219,18 @@ def test_three_updates_match_jax(run):
 
 
 def test_regimes_outside_the_slice_raise(tmp_path):
+    """An unknown regime, and a GAN regime at batch 1 (forwardG would halve
+    it into an empty half), raise before anything moves; so do a step out
+    of train mode and an lr other than the recipe's."""
     tm = CSModel(cfg=_cfg("Mixed"), device="cpu")
+    before = [p.detach().clone() for p in tm.net_G.parameters()]
+    tm.set_input(*_batch(0, n=1))
+    with pytest.raises(ValueError, match="forwardG crossover"):
+        tm.update()
+    assert all(torch.equal(a, p) for a, p in zip(before, tm.net_G.parameters()))
+    tm.cfg.reg = "Supervised"
     tm.set_input(*_batch(0))
-    with pytest.raises(NotImplementedError, match="net_G"):
+    with pytest.raises(ValueError, match="unknown regime"):
         tm.update()
     tm.cfg.reg = "Rec"
     tm.eval()
@@ -301,9 +311,10 @@ def test_jax_checkpoint_with_opt_resumes_in_port(start, jax_opt, tmp_path):
 def test_port_save_with_opt_after_a_step_loads_in_jax(start, jax_opt, tmp_path):
     """JAX `save(with_opt=True)` -> port load -> one port step -> port
     `save(with_opt=True)`: the JAX CSModel loads it (its `load` asserts
-    that no optimizer key is missing). Every `opt_state` key is there: net_G,
-    net_D and net_mask's as carried, net_T and net_R's the port's own
-    moments after its step; the JAX model restores both exactly."""
+    that no optimizer key is missing). Every `opt_state` key is there:
+    net_mask's as carried, every net's the port's own moments (net_T's and
+    net_R's after its step, net_G's and net_D's as loaded); the JAX model
+    restores them exactly."""
     from flax import serialization
 
     path, _ = jax_opt
@@ -316,7 +327,7 @@ def test_port_save_with_opt_after_a_step_loads_in_jax(start, jax_opt, tmp_path):
     got = jckpt_load(out)["opt_state"]
     ours = tm._opt_entries()
     assert set(got) == set(want)
-    assert {k.split("/")[0] for k in set(want) - set(ours)} == {"net_G", "net_D", "net_mask"}
+    assert {k.split("/")[0] for k in set(want) - set(ours)} == {"net_mask"}
     for k in want:
         np.testing.assert_array_equal(got[k], ours[k] if k in ours else want[k], err_msg=k)
     assert int(ours["net_T/0/count"]) == 2  # the JAX step, then the port's
@@ -328,39 +339,76 @@ def test_port_save_with_opt_after_a_step_loads_in_jax(start, jax_opt, tmp_path):
 
 
 def test_load_then_save_keeps_net_g_and_net_d(start, tmp_path):
-    """A JAX checkpoint's net_G and net_D (nets the port does not run yet)
-    come back from a port load-then-save bit for bit, params and stats."""
-    _, _, path = start
+    """A JAX checkpoint's net_G and net_D load into the port's modules
+    (params, BatchNorm statistics, u and v) and come back from a port
+    load-then-save bit for bit."""
+    jm, _, path = start
     tm = CSModel(ckpt=path, cfg=_cfg("Rec"), device="cpu")
     out = str(tmp_path / "port_resaved")
     tm.save(out)
     want, got = jckpt_load(path), jckpt_load(out)
     for name in ("net_G", "net_D"):
         assert set(got[name]) == set(want[name]) and want[name], name
+        sd = {k: v for k, v in getattr(tm, name).state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+        held = from_jax.to_jax_entries(sd, tm._entries(name))
+        assert set(held) == set(want[name]), name  # every array is in the module
         for k, v in want[name].items():
             assert got[name][k].dtype == v.dtype, f"{name} {k}"
+            np.testing.assert_array_equal(held[k], v, err_msg=f"{name} {k}")
             np.testing.assert_array_equal(got[name][k], v, err_msg=f"{name} {k}")
+    assert set(got["net_mask"]) == {"pruned"}
 
 
 def test_save_with_opt_without_a_checkpoint_is_refused(tmp_path):
-    """A model built from a cfg has no optimizer state for net_G and net_D
-    to write, and the JAX `load` rejects an `opt_state` without them."""
-    tm = CSModel(cfg=_cfg("Rec"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tm.save(str(tmp_path / "fresh"), with_opt=True)
-    assert not os.path.exists(tmp_path / "fresh")
-    tm.save(str(tmp_path / "fresh"))  # without the optimizer state it saves
+    """A model built from a cfg (no checkpoint) saves its optimizer state
+    too, after a Mixed step: the JAX CSModel loads it (its `load` asserts
+    that no optimizer key is missing or extra, net_mask's included) and
+    restores every moment and count exactly."""
+    from flax import serialization
+
+    tm = CSModel(cfg=_cfg("Mixed"), device="cpu")
+    tm.set_input(*_batch(0))
+    tm.update()
+    out = str(tmp_path / "fresh")
+    tm.save(out, with_opt=True)
+    saved = jckpt_load(out)["opt_state"]
+    jm = JaxCSModel(ckpt=out)
+    restored = flatten_tree(serialization.to_state_dict(jm.state["opt"]))
+    assert set(restored) == set(saved)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(np.asarray(restored[k]), v, err_msg=k)
+    assert {k: int(saved[f"{k}/0/count"]) for k in
+            ("net_G", "net_D", "net_T", "net_R", "net_mask")} == {
+        "net_G": 1, "net_D": 1, "net_T": 1, "net_R": 1, "net_mask": 0}
 
 
 def test_grad_accum_is_refused():
-    """The JAX package runs micro-batches for grad_accum > 1; the port does
-    not, so it refuses rather than take one full-batch step."""
-    tm = CSModel(cfg=Config(**{**_cfg("Rec").to_dict(), "grad_accum": 2}), device="cpu")
-    tm.set_input(*_batch(0))
-    before = [p.detach().clone() for p in tm.net_R.parameters()]
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    """grad_accum=2 on a batch whose micro-batches each repeat the full
+    batch's rows ([a, b, a, b] in Rec: micro-batches [a, b] and [a, b]) has
+    the full-batch step's losses and gradients, as the JAX package's
+    accumulation does (tests/test_engine.py): equal means, equal BatchNorm
+    batch statistics. Gradients at rtol 2e-4 and atol 1e-6 of the net's
+    largest (sums in another order); the JAX package is held in
+    tests/test_torch_port_gan_accum.py."""
+    full2, aux2 = _batch(0)
+    rep = lambda x: np.concatenate([x, x])
+    tms = {}
+    for accum in (1, 2):
+        tm = CSModel(cfg=Config(**{**_cfg("Rec").to_dict(), "grad_accum": accum}),
+                     device="cpu", seed=3)
+        tm.set_input(rep(full2), rep(aux2))
         tm.update()
-    assert all(torch.equal(a, p) for a, p in zip(before, tm.net_R.parameters()))
+        tms[accum] = tm
+    la, lb = (tms[a].get_vis("scalars")["scalars"] for a in (1, 2))
+    for k, v in la.items():
+        np.testing.assert_allclose(lb[k], v, rtol=1e-5, err_msg=k)
+    for name in ("net_T", "net_R"):
+        ga = [p.grad for p in getattr(tms[1], name).parameters()]
+        gb = [p.grad for p in getattr(tms[2], name).parameters()]
+        net_max = max(float(g.abs().max()) for g in ga)
+        for a, b in zip(ga, gb):
+            torch.testing.assert_close(b, a, rtol=2e-4, atol=1e-6 * net_max)
 
 
 def test_learn_mask_with_a_loupe_mask_is_refused(start):
@@ -395,3 +443,47 @@ def test_chip_smoke_train_and_autograd_phases_run_on_cpu():
         np.random.default_rng(1), device="cpu", shape=32, batch=2
     ) == {}
     chip_smoke.check_train_vs_cpu(np.random.default_rng(2), device="cpu", shape=32)
+
+
+def test_chip_smoke_step_check_holds_ill_conditioned_sensitivity_leaves(
+        monkeypatch, capsys):
+    """On a draw whose sensitivity maps come below SENS_MIN, chip_smoke.py's
+    whole-step check names net_R's sensitivity-net leaves, logs them apart
+    and holds them to SENS_ILL_TOL, the rest to STEP_GRAD_TOL; a bar of 0
+    on those leaves fails."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    monkeypatch.setattr(chip_smoke, "SENS_MIN", float("inf"))  # every draw
+    chip_smoke.check_train_vs_cpu(np.random.default_rng(2), device="cpu", shape=32)
+    out = capsys.readouterr().out
+    assert "sensitivity-net leaves, ill-conditioned" in out
+    rest = next(line for line in out.splitlines() if line.startswith("Rec gradients"))
+    assert "sens_net." not in rest
+    monkeypatch.setattr(chip_smoke, "SENS_ILL_TOL", 0.0)
+    with pytest.raises(AssertionError, match="net_R: cpu gradients differ"):
+        chip_smoke.check_train_vs_cpu(np.random.default_rng(2), device="cpu", shape=32)
+
+
+def test_chip_smoke_gan_phases_run_on_cpu():
+    """chip_smoke.py's GAN phases on the CPU at a small shape (full widths):
+    the Mixed recipe from PBSpline-augmented batches, one GAN-Only step and
+    one accumulated Mixed step, augmentation against itself, and the whole
+    Mixed step against float64."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    rng = np.random.default_rng(3)
+    assert chip_smoke.check_mixed(rng, device="cpu", shape=32, batch=2) == {}
+    assert chip_smoke.check_gan_only_and_accum(rng, device="cpu", shape=32, batch=4) == {}
+    assert chip_smoke.check_augment(rng, device="cpu", shape=35, batch=2) == {}
+    chip_smoke.check_train_vs_cpu(rng, device="cpu", shape=32, reg="Mixed")
+    # the launch counts a card must show: one Mixed step's and one PBSpline
+    # batch's, as the module derives them
+    assert chip_smoke.add_counts(chip_smoke.MIXED_LAUNCHES, chip_smoke.PBSPLINE_LAUNCHES) == {
+        "grid_sample_fwd": 4, "grid_sample_bwd_dgrid": 2, "grid_sample_bwd_dimg": 1,
+        "ssim_fwd": 1, "ssim_bwd": 1}
