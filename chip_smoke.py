@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (the Rec step and
-the reference's own Mixed protocol), its registration-loss library and its
-3x3 conv on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training (the Rec step and the
+reference's own Mixed protocol) and eval paths, its registration-loss
+library and its 3x3 conv on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -95,7 +95,20 @@ failure:
      included, each net within STEP_GRAD_TOL of float64 (net_R's
      sensitivity-net leaves within SENS_ILL_TOL where the draw's
      sensitivity maps come below SENS_MIN). These draw their inputs
-     after every earlier phase, which keep theirs.
+     after every earlier phase, which keep theirs;
+ 11. eval at full width (phase 11 alone: `python3 -c "import sys,
+     chip_smoke; sys.exit(chip_smoke.eval_phases())"`): the eval CLI's
+     loop (`engine/eval.py::evaluate`: bucket padding, staging from
+     pinned memory, `CSModel.test`) over phantom volumes of 20 and 16
+     slices, bucket 16, with random weights for net_T, net_R and net_G
+     (its spectral vectors converged), after a warm-up pass over the same
+     volumes; launch counts reset just before and read just after
+     (EVAL_LAUNCHES a volume: 2 grid sample forwards, 1 SSIM forward);
+     volumes/s and slices/s from CUDA events, each volume alone, the peak
+     device memory; one 4-slice volume (padded to 6) against the CPU,
+     with the test step in float64 on the CPU beside them, and two faults
+     that metric_MI's bar must catch, read on the card's images. It draws
+     after every earlier phase.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -185,6 +198,33 @@ MIXED_LAUNCHES = {"grid_sample_fwd": 2, "grid_sample_bwd_dgrid": 2,
 GAN_ONLY_LAUNCHES = {"grid_sample_fwd": 1, "grid_sample_bwd_dgrid": 1,
                      "grid_sample_bwd_dimg": 1}
 PBSPLINE_LAUNCHES = {"grid_sample_fwd": 2}
+# launches of each kernel a volume of the eval step (`CSModel.test`):
+# the warp of |aux| for net_R and forwardG's warp of [aux_TR, G(aux_RT)],
+# and one SSIM forward, whose per-plane sums give both loss_sim and
+# metric_SSIM; no backward
+EVAL_LAUNCHES = {"grid_sample_fwd": 2, "ssim_fwd": 1}
+# the eval phase's volumes: slices a volume and the bucket they pad to
+# (20 -> 32 runs the masked step with 12 pad slices, 16 the unpadded)
+EVAL_SLICES = (20, 16)
+EVAL_BUCKET = 16
+# card against the CPU: one volume of EVAL_CPU_SLICES slices, padded to a
+# multiple of EVAL_CPU_BUCKET (4 -> 6: the masked step, two pad slices)
+EVAL_CPU_SLICES = 4
+EVAL_CPU_BUCKET = 3
+EVAL_PSNR_ATOL = 1e-3  # dB
+EVAL_RTOL = 1e-4  # SSIM, MAE, MSE and the losses
+# metric_MI is a 64-bin hard histogram of the warped reference: a pixel
+# whose value two runs round to either side of a bin edge moves the mean
+# MI of 4 slices of 102,400 pixels by about 2.5e-6. Readings on NVIDIA
+# H100 80GB HBM3, 700 W, on the draws of `eval_phases()` and of the whole
+# script: the CPU's f32 step lies 5.2e-8 and 1.3e-8 from its float64 step
+# (no pixel crosses), the card 2.8e-6 and 3.6e-6 from the CPU (one
+# crossing each); the faults of `mi_controls` move MI by 1.7e-2 and
+# 2.3e-2 (the warp one pixel off) and 1.9e-4 and 1.4e-2 (one slice binned
+# half a bin off). The bar admits about 40 crossings and stays under the
+# smallest fault
+EVAL_MI_ATOL = 1e-4
+POWER_ITERS = 50  # net_G's u and v: converged to f32 within these
 # parameters whose gradient a step makes exactly 0, so Adam leaves them:
 # the first cascade's dc_weight (its data term k - k_ref is 0, as the
 # cascades start from k_ref) and net_D's head bias (the hinge's fake and
@@ -1246,9 +1286,12 @@ def serving_cfg(shape=SHAPE):
     return Config(shape=shape, coils=1, mask="equispaced", sparsity=0.25, lr=1e-4)
 
 
-def random_entries(model, rng):
-    """Checkpoint entries for net_T and net_R in the JAX package's layout
-    (flax names, HWIO kernels, cascades stacked), from a numpy seed."""
+def random_entries(model, rng, gan=False):
+    """Checkpoint entries for net_T and net_R (and with `gan` net_G) in the
+    JAX package's layout (flax names, HWIO kernels, cascades stacked),
+    from a numpy seed. net_G's spectral-norm vectors are those a trained
+    checkpoint holds: u and v of its power iteration run to convergence on
+    each kernel, so sigma is the kernel's largest singular value."""
     from spatialalignmentnetwork_tpu_torch.engine import from_jax
 
     def make(module, entries, n_stack):
@@ -1287,7 +1330,23 @@ def random_entries(model, rng):
         len(model.net_R.sens_net.norm_unet.unet.down_sample_layers),
         len(model.net_R.cascades[0].model.unet.down_sample_layers),
     ), cascades)
-    return {"net_T": net_t, "net_R": net_r}
+    out = {"net_T": net_t, "net_R": net_r}
+    if gan:
+        net_g = make(model.net_G, from_jax.snconv_entries(model.net_G), 0)
+        for key in [k for k in net_g if k.endswith("SpectralConv_0/kernel")]:
+            conv = key[len("params/"):-len("/kernel")]
+            w = from_jax.to_torch_layout(net_g[key], "conv").astype(np.float64)
+            w = w.reshape(w.shape[0], -1)
+            u = rng.standard_normal(w.shape[0])
+            for _ in range(POWER_ITERS):
+                v = w.T @ u
+                v /= np.linalg.norm(v)
+                u = w @ v
+                u /= np.linalg.norm(u)
+            net_g[f"stats/{conv}/u"] = u.astype(np.float32)
+            net_g[f"stats/{conv}/v"] = v.astype(np.float32)
+        out["net_G"] = net_g
+    return out
 
 
 def check_serving(rng, device="cuda", shape=SHAPE, batch=BATCH):
@@ -1792,6 +1851,153 @@ def check_augment(rng, device="cuda", shape=AUG_SHAPE, batch=TRAIN_BATCH):
         raise AssertionError(f"augmentation launches {launches}, expected "
                              f"{PBSPLINE_LAUNCHES}")
     return launches
+
+
+# ------------------------------------------------------------- eval
+def eval_volume(rng, slices, shape):
+    """One volume as the eval loop reads it: `slices` slices [target, aux],
+    each a complex [1, H, W] phantom."""
+    full, aux = phantoms(rng, slices, shape)
+    return [[full[i], aux[i]] for i in range(slices)]
+
+
+def eval_f64(cfg, entries, volume):
+    """The unpadded test step of `volume` on the CPU in float64 (the nets,
+    the inputs and every op but the warp, which samples in f32 at net_T's
+    f32 grid, as in f32); its scalars."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import NETS, CSModel
+
+    model = CSModel(cfg=cfg, device="cpu", seed=0)
+    model.load_entries(entries)
+    for name in NETS:
+        getattr(model, name).to(torch.float64)
+    model.eval()
+    model._batch = tuple(torch.from_numpy(np.stack([s[i] for s in volume])).to(torch.complex128)
+                         for i in (0, 1))
+    model.test()
+    return model.get_vis("scalars")["scalars"]
+
+
+def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_BUCKET,
+               cpu_slices=EVAL_CPU_SLICES, cpu_bucket=EVAL_CPU_BUCKET):
+    """The eval path at full width: `engine/eval.py::evaluate` (the eval
+    CLI's loop: bucket padding, non-blocking staging, `CSModel.test`) over
+    phantom volumes of `slices` slices with random weights for net_T, net_R
+    and net_G, after a warm-up pass over the same volumes (cuDNN's choice
+    of algorithms and the allocator's growth for every padded shape fall
+    outside the timed loop); launch counts reset just before
+    and read just after (EVAL_LAUNCHES a volume); volumes/s and slices/s
+    from CUDA events, the peak device memory. Then one volume of
+    `cpu_slices` on `device` against the CPU (f32) through the same
+    `evaluate`, with the test step in float64 on the CPU beside them, and
+    the MI bar's controls on the card's images (`mi_controls`).
+    Returns the launch counts of the timed loop. (The CPU tests run it at
+    a small shape on the CPU, where no kernel launches.)"""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.engine.eval import _bucket_pad, evaluate
+
+    cfg = serving_cfg(shape)
+    model = CSModel(cfg=cfg, device=device, seed=0)
+    entries = random_entries(model, rng, gan=True)
+    model.load_entries(entries)
+    model.eval()
+    volumes = [eval_volume(rng, n, shape) for n in slices]
+    padded = [-(-n // bucket) * bucket for n in slices]
+    is_cuda = model.device.type == "cuda"
+    evaluate(model, volumes, bucket)  # warm-up: every shape the timed loop runs
+    if is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = evaluate(model, volumes, bucket)
+    if is_cuda:
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+    else:
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for i, scalars in enumerate(stats):
+        if not all(np.isfinite(v) for v in scalars.values()):
+            raise AssertionError(f"eval volume {i}: non-finite scalar {scalars}")
+    log(f"eval on {model.device}: {len(volumes)} volumes of {list(slices)} slices "
+        f"(bucket {bucket}: {padded}), {secs * 1e3 / len(volumes):.2f} ms a volume, "
+        f"{len(volumes) / secs:.3f} volumes/s, {sum(slices) / secs:.2f} slices/s "
+        f"({sum(padded) / secs:.2f} with the pad slices); launches {launches}, "
+        f"{ {k: v / len(volumes) for k, v in launches.items()} } a volume")
+    if is_cuda:
+        log(f"eval peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        want = scaled(EVAL_LAUNCHES, len(volumes))
+        if launches != want:
+            raise AssertionError(f"eval launches {launches}, expected {want}")
+        alone = []
+        for volume, n in zip(volumes, padded):  # each volume alone, after the loop
+            start.record()
+            evaluate(model, [volume], bucket)
+            end.record()
+            end.synchronize()
+            alone.append(f"{n} slices {start.elapsed_time(end):.2f} ms "
+                         f"({start.elapsed_time(end) / n:.2f} a slice)")
+        log(f"eval, each volume alone: {'; '.join(alone)}")
+
+    # card against the CPU, with float64 on the CPU beside them
+    small = [eval_volume(rng, cpu_slices, shape)]
+    got = evaluate(model, small, cpu_bucket)[0]
+    restore = _bucket_pad([np.zeros(cpu_slices)], cpu_bucket)[2]
+    controls = mi_controls(model._aux["img_full_rss"][restore],
+                           model._aux["img_warped_rss"][restore])
+    ref_model = CSModel(cfg=cfg, device="cpu", seed=0)
+    ref_model.load_entries(entries)
+    ref_model.eval()
+    t0 = time.perf_counter()
+    want = evaluate(ref_model, small, cpu_bucket)[0]
+    t1 = time.perf_counter()
+    f64 = eval_f64(cfg, entries, small[0])
+    t2 = time.perf_counter()
+    diff = {k: abs(got[k] - v) for k, v in want.items()}
+    cpu_f64 = {k: abs(v - f64[k]) for k, v in want.items()}
+    log(f"eval of {cpu_slices} slices (bucket {cpu_bucket}) on {model.device} vs cpu: "
+        f"{device} {got}; cpu {want}; cpu f64 (unpadded) {f64}; |{device} - cpu| "
+        f"{diff}; |cpu - cpu f64| {cpu_f64}; cpu seconds f32 {t1 - t0:.1f}, "
+        f"f64 {t2 - t1:.1f} (bars: PSNR {EVAL_PSNR_ATOL} dB, MI {EVAL_MI_ATOL}, "
+        f"rtol {EVAL_RTOL})")
+    log(f"eval metric_MI controls on {model.device} (|MI - MI of the fault| of the "
+        f"{cpu_slices} slices, bar {EVAL_MI_ATOL}): {controls}")
+    for k, v in want.items():
+        bar = (EVAL_PSNR_ATOL if k == "metric_PSNR" else EVAL_MI_ATOL if k == "metric_MI"
+               else EVAL_RTOL * abs(v))
+        if not diff[k] <= bar:
+            raise AssertionError(f"eval {k}: {device} {got[k]} vs cpu {v} (bar {bar})")
+    for fault, moved in controls.items():
+        if not moved > EVAL_MI_ATOL:
+            raise AssertionError(f"eval metric_MI bar {EVAL_MI_ATOL} misses {fault}: "
+                                 f"it moves MI by {moved}")
+    return launches
+
+
+def mi_controls(full, warped):
+    """How far metric_MI of (full, warped) [S, 1, H, W] moves under the two
+    faults its bar must catch: the warped image one pixel off along W, and
+    the first slice binned with its bin edges half a bin off."""
+    from spatialalignmentnetwork_tpu_torch.utils import metrics_torch as metrics
+
+    per_slice = metrics.mi_per_slice(full, warped)
+    half = 0.5 / 64
+    misbinned = per_slice.clone()
+    misbinned[0] = metrics.mi_per_slice(full[:1], warped[:1], minVal=-half,
+                                        maxVal=1.0 - half)[0]
+    mi = per_slice.mean()
+    return {"warp one pixel off": abs(float(metrics.mi(full, warped.roll(1, dims=-1)) - mi)),
+            "one slice binned half a bin off": abs(float(misbinned.mean() - mi))}
 
 
 def check_registration(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
@@ -2424,6 +2630,23 @@ def grid_phases(checks=True, bits_file=None):
     return 0
 
 
+def eval_phases():
+    """The eval phase alone: build the grid sample and SSIM kernels (the
+    eval step's), then `check_eval`. 0 when it passes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels(["grid_sample.cu", "ssim.cu"])
+    check_eval(np.random.default_rng(0))
+    return 0
+
+
 def main():
     import torch
 
@@ -2458,8 +2681,9 @@ def main():
     check_gan_only_and_accum(rng)
     check_augment(rng)
     check_train_vs_cpu(rng, reg="Mixed")
+    main_paths.append(check_eval(rng))  # draws after every earlier phase
     for e in entries:
-        # serving and the Rec and Mixed train steps are the main paths (d_img
+        # serving, the Rec and Mixed train steps and eval are the main paths (d_img
         # runs on the Mixed one, and on its own); the loss kernels run on
         # the registration-loss library's entry points, the conv on its own
         # entry point's ladder

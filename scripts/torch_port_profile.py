@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's serving or training time goes on one NVIDIA GPU.
+"""Where the PyTorch port's serving, training or eval time goes on one NVIDIA GPU.
 
     python3 scripts/torch_port_profile.py [--batch 8] [--requests 3]
     python3 scripts/torch_port_profile.py --train [--reg Mixed] [--batch 4] [--requests 3]
+    python3 scripts/torch_port_profile.py --eval [--batch 16] [--requests 3]
 
 Builds the CSModel at the default widths (320 x 320, 1 coil, 4x
 equispaced) with the synthetic weights and phantoms of chip_smoke.py,
@@ -10,7 +11,9 @@ warms it up, then profiles `--requests` reconstruct calls (or, with
 --train, train steps of regime --reg: set_input + update; Rec by default,
 or Mixed with the reference's recipe and, as chip_smoke.py's Mixed phase,
 PBSpline augmentation of 352 planes cropped to 320, on the card, inside
-the profiled step) with torch.profiler and
+the profiled step; or, with --eval, volumes of --batch slices through the
+eval CLI's loop, `engine/eval.py::evaluate`, with net_G's weights from
+chip_smoke.py too) with torch.profiler and
 prints: slices/s, the device time by the category of the aten op that
 launched it, the top ops and kernels, and the device's idle share of the
 profiled window (one minus the union of kernel intervals over the
@@ -53,9 +56,13 @@ def main():
                     help="profile train steps instead of serving")
     ap.add_argument("--reg", default="Rec", choices=("Rec", "Mixed"),
                     help="the train steps' regime (with --train)")
+    ap.add_argument("--eval", action="store_true",
+                    help="profile eval volumes (CSModel.test) instead of serving")
     args = ap.parse_args()
+    if args.train and args.eval:
+        raise SystemExit("--train and --eval exclude each other")
     if args.batch is None:
-        args.batch = 4 if args.train else 8
+        args.batch = 4 if args.train else 16 if args.eval else 8
 
     import torch
     from torch.autograd import DeviceType
@@ -63,6 +70,7 @@ def main():
 
     import chip_smoke
     from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.engine.eval import evaluate
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card available")
@@ -74,15 +82,20 @@ def main():
     else:
         cfg = chip_smoke.train_cfg() if args.train else chip_smoke.serving_cfg()
     model = CSModel(cfg=cfg, device="cuda", seed=0)
-    model.load_entries(chip_smoke.random_entries(model, rng))
+    model.load_entries(chip_smoke.random_entries(model, rng, gan=args.eval))
     side = chip_smoke.AUG_SHAPE if gan else cfg.shape
     reqs = [chip_smoke.phantoms(rng, args.batch, side) for _ in range(args.requests)]
     gen = torch.Generator(device=model.device).manual_seed(0)
+    if args.eval:
+        model.eval()
 
     def run(full, aux):
-        if gan:
-            full, aux = chip_smoke.augmented_batch(full, aux, gen, model.device, cfg.shape)
-        if args.train:
+        if args.eval:
+            evaluate(model, [list(zip(full, aux))], chip_smoke.EVAL_BUCKET)
+        elif args.train:
+            if gan:
+                full, aux = chip_smoke.augmented_batch(full, aux, gen, model.device,
+                                                       cfg.shape)
             model.set_input(full, aux)
             model.update()
         else:
@@ -128,7 +141,8 @@ def main():
             by_cat[op_category(avg.key[len("aten::"):])] += avg.self_device_time_total
     by_cat["(no aten op: ctypes kernels)"] = total - sum(by_cat.values())
     n_slices = args.batch * args.requests
-    what = f"{args.reg} train steps" if args.train else "requests"
+    what = (f"{args.reg} train steps" if args.train
+            else "eval volumes" if args.eval else "requests")
     print(f"{args.requests} {what} x {args.batch} slices in {wall * 1e3:.1f} ms "
           f"host wall under the profiler: {n_slices / wall:.2f} slices/s")
     print(f"device kernel time {total / 1e3:.2f} ms "

@@ -14,13 +14,16 @@ Layout:
     models/    VarNet + NormUnet, spatial transformer, LibUNet (and the
                Encoder, Decoder and ResNet factories), the GAN's
                spectral-norm NetG and NetD
-    data/      augmentation (rigid + B-spline, the four batch policies)
+    data/      augmentation (rigid + B-spline, the four batch policies),
+               the paired h5 volume datasets
+    utils/     the eval metrics, on tensors (`metrics_torch`) and in numpy
     kernels/   ctypes bindings of the CUDA kernels, launch counts; the 3x3
                conv entry point `kernels.conv.conv3x3_s2d`
     csrc/      CUDA C++ sources (sm_90a)
-    engine/    Config, checkpoint reading, weight carry-over from the JAX
-               package's checkpoints, the CSModel (serving and the four
-               train regimes)
+    engine/    Config, checkpoints (the JAX package's and the
+               reference's layouts), weight carry-over from the JAX
+               package's checkpoints, the CSModel (serving, the four train
+               regimes, the eval step), the eval CLI
 """
 
 __version__ = "0.1.0"

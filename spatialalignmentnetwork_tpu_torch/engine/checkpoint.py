@@ -1,4 +1,5 @@
-"""The JAX package's directory-per-checkpoint format, read and written.
+"""The JAX package's directory-per-checkpoint format, read and written,
+and the reference's own checkpoints, read.
 
 A checkpoint is a DIRECTORY holding one flat npz file per network (named
 after the network, e.g. `net_R`) plus a JSON `config`. Network entries map
@@ -6,12 +7,28 @@ after the network, e.g. `net_R`) plus a JSON `config`. Network entries map
 for BatchNorm running statistics, and `pruned` for the mask; with the
 optimizer state, an `opt_state` entry. The port reads and writes this
 layout; `engine/from_jax.py` maps the entries to and from `state_dict`s.
+
+`ckpt_load` also reads every layout the JAX package's loader takes (its
+checkpoint.py:94-154), the reference's saves (its basemodel.py:17-41):
+
+  * a directory whose entries are torch-serialized state dicts (zip or
+    legacy pickle format);
+  * a directory of npz files holding raw state dicts (torch key names);
+  * a single torch-serialized FILE holding {'net_X': state_dict, ...,
+    'config': dict}.
+
+Such an entry comes back as its state dict in numpy, under torch key
+names (`is_reference_entry` tells it from a native entry); `CSModel`
+loads it into the module by those names. Torch files are read with
+`weights_only=True`: no code from a checkpoint runs.
 """
 
 import os
 import shutil
+import zipfile
 
 import numpy as np
+import torch
 
 from .config import Config
 
@@ -38,9 +55,65 @@ def unflatten_tree(flat: dict) -> dict:
     return out
 
 
+def is_reference_entry(flat: dict) -> bool:
+    """Is this network entry a raw reference state dict (torch key names)
+    rather than a native one ('params/...', 'stats/...', 'pruned')? A bare
+    {'pruned'} entry reads the same either way and counts as native (the
+    rule of the JAX package's torch_compat.py:250-260)."""
+    return any(
+        not (k.startswith("params/") or k.startswith("stats/") or k == "pruned")
+        for k in flat
+    )
+
+
+def _torch_load(path: str):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _state_dict_arrays(sd) -> dict:
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in sd.items()}
+
+
+def _is_torch_zip(path: str) -> bool:
+    """A torch.save file of the zip format (an `<archive>/data.pkl`
+    member). np.load would take it for an npz and return its members'
+    raw bytes."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        return any(n.endswith("/data.pkl") or n == "data.pkl" for n in z.namelist())
+
+
+def _read_entry(path: str) -> dict:
+    """One network entry: an npz file (native, or a reference state dict
+    under torch names), else a torch-serialized state dict."""
+    if _is_torch_zip(path):
+        return _state_dict_arrays(_torch_load(path))
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    except ValueError:  # a pickle: torch's legacy format
+        return _state_dict_arrays(_torch_load(path))
+
+
+def _load_file(path: str) -> dict:
+    """A single torch-serialized checkpoint file (the reference's
+    basemodel.py:18-19): {'net_X': state_dict, ..., 'config': dict}."""
+    raw = _torch_load(path)
+    ckpt = {}
+    for key, val in raw.items():
+        if key == "config":
+            ckpt[key] = Config(**dict(val))
+        else:
+            ckpt[key] = _state_dict_arrays(val)
+    return ckpt
+
+
 def ckpt_load(folder: str) -> dict:
-    """Load a native checkpoint directory -> {'net_X': flat dict,
-    'config': Config}. Entries that are not npz files are refused.
+    """Load a checkpoint -> {'net_X': flat dict, 'config': Config}: a
+    checkpoint directory (native entries, reference state dicts in npz or
+    torch files) or a single torch file.
 
     Recovers from an interrupted write as the JAX package does: a missing
     target with a `.repack` sibling (a re-pack cut before its rename) gets
@@ -53,16 +126,17 @@ def ckpt_load(folder: str) -> dict:
             os.replace(base + ".repack", folder)
         elif os.path.isdir(base + ".old-save"):
             folder = base + ".old-save"
+    if os.path.isfile(folder):
+        return _load_file(folder)
     if not os.path.isdir(folder):
-        raise FileNotFoundError(f"not a checkpoint directory: {folder}")
+        raise FileNotFoundError(f"not a checkpoint: {folder}")
     ckpt = {}
     for key in os.listdir(folder):
         path = os.path.join(folder, key)
         if key == "config":
             ckpt[key] = Config().load(path)
         else:
-            with np.load(path, allow_pickle=False) as z:
-                ckpt[key] = {k: z[k] for k in z.files}
+            ckpt[key] = _read_entry(path)
     return ckpt
 
 

@@ -40,11 +40,22 @@ own at each one. The bf16 policy, LOUPE mask learning and per-cascade
 rematerialization wait for later slices; `build` and `update` refuse a
 cfg that asks for one of them.
 
+Evaluation (`eval` -> `set_input` -> `test` -> `get_vis`) runs the JAX
+package's test step on a whole volume: net_T, the warp, forwardG's
+crossover through net_G and net_R, all in eval mode, then the eval
+metrics on the device (`utils/metrics_torch.py`): PSNR, SSIM, MAE and MSE
+of the reconstruction, MI of the warped reference, against the fully
+sampled rss image. loss_sim and metric_SSIM come from one launch of the
+SSIM forward kernel. With `valid` (a bucketed volume padded with zero
+slices) every scalar is a mean over the valid slices alone.
+
 Nets are built from the cfg keys of the JAX `CSModel.build`, and
 checkpoints go both ways in the JAX package's directory layout (`load`,
 `save`), with weights, statistics and Adam moments carried by
-`engine/from_jax.py`. net_mask's entries other than `pruned` (the mask is
-fixed here) are kept as loaded and written back by `save`.
+`engine/from_jax.py`; `load` also reads the reference's own checkpoints
+(raw state dicts, under the torch names the port's modules keep).
+net_mask's entries other than `pruned` (the mask is fixed here) are kept
+as loaded and written back by `save`.
 
 The model lives on `device`, "cuda" unless the caller asks for "cpu"; with
 no card and no explicit "cpu" it raises rather than run on the CPU.
@@ -54,13 +65,14 @@ import numpy as np
 import torch
 
 from ..models.gan import NetD, NetG, SpectralConv, loss_gan
-from ..models.stn import SpatialTransformer, gradient_loss, warp
+from ..models.stn import SpatialTransformer, gradient_loss, gradient_loss_per_sample, warp
 from ..models.varnet import VarNet
 from ..ops import masks as masks_lib
-from ..ops.fft import fft2, ifft2, rss
+from ..ops.fft import fft2, fftshift2, ifft2, rss
 from ..ops.ssim import ssimloss
+from ..utils import metrics_torch as metrics
 from . import from_jax
-from .checkpoint import ckpt_load, ckpt_save
+from .checkpoint import ckpt_load, ckpt_save, is_reference_entry
 
 NET_NAMES = ("net_mask", "net_G", "net_D", "net_T", "net_R")
 NETS = ("net_G", "net_D", "net_T", "net_R")  # the modules CSModel builds
@@ -74,6 +86,10 @@ GRAD_NETS = {
     "GAN-Only": ("net_T", "net_G"),
 }
 GAN_REGIMES = ("Mixed", "GAN-Only")
+# mask kinds whose fresh build has a `weight` (the JAX package keeps a
+# reference checkpoint's net_mask weight for these alone, torch_compat.py:
+# 287-291)
+WEIGHTED_MASKS = ("mask", "loupe")
 
 
 def resolve_device(device) -> torch.device:
@@ -222,31 +238,50 @@ class CSModel:
             return from_jax.varnet_entries_of(self.net_R)
         return from_jax.snconv_entries(getattr(self, name))
 
-    def load(self, ckpt, cfg=None):
-        """Load a checkpoint directory the JAX `CSModel.save` (or `save`
-        here) wrote."""
+    def load(self, ckpt, cfg=None, objects=None):
+        """Load a checkpoint: a directory the JAX `CSModel.save` (or `save`
+        here) wrote, or a reference checkpoint in any layout `ckpt_load`
+        reads. `objects` names the nets to load (the JAX signature that
+        `--load_nets` uses); the others keep their fresh build, and the
+        optimizer state is restored only when `objects` is None."""
         loaded = ckpt_load(ckpt)
         saved_cfg = loaded.pop("config", None)
+        if objects is not None:
+            missing = [name for name in objects if name not in loaded]
+            if missing:
+                raise KeyError(f"{missing} not in checkpoint {ckpt}")
+            loaded = {name: loaded[name] for name in objects}
         self.build(cfg if cfg is not None else saved_cfg,
                    pruned=loaded.get("net_mask", {}).get("pruned"))
         self.load_entries(loaded)
 
     def load_entries(self, entries: dict):
-        """Set weights and statistics from JAX checkpoint entries
-        {'net_T': flat, ...}; a net whose weights load restarts its Adam,
-        unless `opt_state` (the JAX package's `save(with_opt=True)` entry)
-        restores the moments. net_mask's entries other than `pruned`, and
-        its `opt_state` keys, are kept as they are for `save`."""
+        """Set weights and statistics from checkpoint entries {'net_T':
+        flat, ...}, each a JAX entry or a reference state dict; a net whose
+        weights load restarts its Adam, unless `opt_state` (the JAX
+        package's `save(with_opt=True)` entry) restores the moments.
+        net_mask's entries other than `pruned`, and its `opt_state` keys,
+        are kept as they are for `save`."""
         for name in entries:
             if name not in NET_NAMES and name != "opt_state":
                 raise KeyError(f"unknown checkpoint entry {name!r}")
         for name in NETS:
             if name in entries:
-                from_jax.load_from_jax(
-                    getattr(self, name), entries[name], self._entries(name)
-                )
+                if is_reference_entry(entries[name]):
+                    self._load_state_dict(name, entries[name])
+                else:
+                    from_jax.load_from_jax(
+                        getattr(self, name), entries[name], self._entries(name)
+                    )
                 self.opt[name].state.clear()
         mask_entry = entries.get("net_mask", {})
+        if is_reference_entry(mask_entry):
+            # the JAX package's mask_to_flax (torch_compat.py:223-230):
+            # `pruned`, and `weight` where the mask kind has one
+            weight = mask_entry.get("weight")
+            mask_entry = {k: v for k, v in mask_entry.items() if k == "pruned"}
+            if weight is not None and self.cfg.get("mask") in WEIGHTED_MASKS:
+                mask_entry["params/weight"] = np.asarray(weight)
         self._mask_entries = {k: v for k, v in mask_entry.items() if k != "pruned"}
         if "pruned" in mask_entry:
             self.pruned = torch.as_tensor(
@@ -256,6 +291,18 @@ class CSModel:
             self._load_opt(entries["opt_state"])
             self._mask_opt = {k: v for k, v in entries["opt_state"].items()
                               if k.startswith("net_mask/")}
+
+    def _load_state_dict(self, name, sd: dict):
+        """Load a reference state dict into net `name` by its torch names
+        (strict: a name the module lacks, or a tensor of the module the
+        dict lacks, raises; a BatchNorm's `num_batches_tracked`, which
+        nothing reads, may be absent)."""
+        module = getattr(self, name)
+        tensors = {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()}
+        for key, buf in module.state_dict().items():
+            if key.endswith("num_batches_tracked") and key not in tensors:
+                tensors[key] = torch.zeros_like(buf)
+        module.load_state_dict(tensors, strict=True)
 
     def save(self, path, with_opt=False):
         """Write a checkpoint directory the JAX `CSModel` loads: the four
@@ -359,10 +406,12 @@ class CSModel:
             "img_aux_rss": rss(img_aux),
         }
 
-    def _forward_TGR(self, env, with_G=False, with_R=True, stop_T=False) -> dict:
+    def _forward_TGR(self, env, with_G=False, with_R=True, stop_T=False,
+                     images=False) -> dict:
         """net_T -> warp [-> forwardG] [-> net_R]; returns {"offset",
-        ["img_aligned",] ["img_rec"]}. With stop_T the offset and grid
-        carry no gradient (regime None).
+        ["img_aligned",] ["img_rec"]}, and with `images` (the test step)
+        also "img_warped" and "img_warped_rss" and, with G, "img_synth".
+        With stop_T the offset and grid carry no gradient (regime None).
 
         forwardG is the JAX package's batch-halving crossover: net_G
         synthesises the second half's target contrast from its reference,
@@ -375,12 +424,17 @@ class CSModel:
         out = {"offset": offset}
         if with_R:
             img_warped = warp(aux_abs, grid)
+            if images:
+                out["img_warped"] = img_warped
+                out["img_warped_rss"] = rss(img_warped)
         if with_G:
             aux_rss = env["img_aux_rss"]
             n1 = (aux_rss.shape[0] + 1) // 2
             synth = self.net_G(aux_rss[n1:])
             warped_all = warp(torch.cat([aux_rss[:n1], synth]), grid)
             out["img_aligned"] = torch.cat([self.net_G(warped_all[:n1]), warped_all[n1:]])
+            if images:
+                out["img_synth"] = torch.cat([warped_all[:n1], synth])
         if with_R:
             mask = torch.logical_not(self.pruned)[None, None, None, :]
             out["img_rec"] = self.net_R(
@@ -555,11 +609,97 @@ class CSModel:
         self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
                      for k in step_losses[0]}
 
-    def get_vis(self, content="scalars"):
-        """The last step's losses as {'scalars': {'loss_*': float}}."""
-        if content != "scalars":
-            raise NotImplementedError(
-                f"get_vis({content!r}): only 'scalars' is ported yet"
-            )
-        return {"scalars": {k: float(v) for k, v in self._aux.items()
-                            if k.startswith("loss_")}}
+    # ---------------------------------------------------------------- eval
+    def _test_step(self, img_full, img_aux, valid=None) -> dict:
+        """The JAX package's test step (`_make_test_step_fn`,
+        csmodel.py:824-886) on device tensors: the eval-mode forward with
+        net_G and net_R, its images, and the eval scalars. `valid` [N]
+        (1 a real slice, 0 a pad slice) makes every scalar a mean over
+        the real slices; a pad slice's values are dropped, not weighted by
+        0, so that a NaN there cannot reach the sums."""
+        env = self._prepare(img_full, img_aux, self.pruned)
+        out = self._forward_TGR(env, with_G=True, with_R=True, images=True)
+        full, rec, warped = env["img_full_rss"], out["img_rec"], out["img_warped_rss"]
+        mask = (1.0 - self.pruned.to(torch.float32))[None, None, None, :]
+        aux = {
+            "img_full_rss": full,
+            "img_sampled_rss": env["img_sampled_rss"],
+            "img_aux_rss": env["img_aux_rss"],
+            "img_mask": fftshift2(mask.expand(full.shape)),
+            "img_offset": out["offset"],
+            "img_warped": out["img_warped"],
+            "img_warped_rss": warped,
+            "img_synth": out["img_synth"],
+            "img_aligned": out["img_aligned"],
+            "img_rec": rec,
+        }
+        # one path for a whole volume and a padded one: valid None is all
+        # ones, and every scalar a mean of per-slice values over the real
+        # slices
+        w = (torch.ones(full.shape[0], device=full.device) if valid is None
+             else valid.to(torch.float32))
+        real = w > 0
+        n = torch.sum(w)
+
+        def wmean(per_slice):
+            return torch.sum(torch.where(real, per_slice * w, 0.0)) / n
+
+        mse_s = metrics.mse_per_slice(full, rec)
+        aux["metric_SSIM"] = wmean(metrics.ssim_per_slice(full, rec))  # the one SSIM launch
+        aux["loss_sim"] = 1.0 - aux["metric_SSIM"]
+        aux["loss_smooth"] = wmean(gradient_loss_per_sample(out["offset"]))
+        aux["loss_gan_sim"] = wmean(
+            torch.mean(torch.abs(out["img_aligned"] - full), dim=(1, 2, 3)))
+        aux["metric_MI"] = wmean(metrics.mi_per_slice(full, warped))
+        aux["metric_MSE"] = wmean(mse_s)
+        aux["metric_PSNR"] = 10.0 * torch.log10(1.0 / aux["metric_MSE"])
+        aux["metric_MAE"] = wmean(metrics.mae_per_slice(full, rec))
+        return aux
+
+    def test(self, valid=None, sync=True):
+        """Eval step on the batch of `set_input` (a whole volume). `valid`:
+        an optional [N] slice-validity vector (numpy, or a tensor already
+        on the model's device) for a volume padded to a bucket. Returns
+        -metric_PSNR (-metric_MI for GAN-Only) as a float; with
+        sync=False it returns None and reads nothing back, so that a
+        caller can stage the next volume while this one computes."""
+        if self.training:
+            raise RuntimeError("test() needs eval mode (call eval())")
+        if self._batch is None:
+            raise RuntimeError("test() needs a batch (call set_input())")
+        self._nets_mode(train=False)
+        with torch.inference_mode():
+            if valid is not None:
+                valid = torch.as_tensor(valid, device=self.device)
+            self._aux = self._test_step(*self._batch, valid)
+        if not sync:
+            return None
+        key = "metric_MI" if self.cfg.get("reg") == "GAN-Only" else "metric_PSNR"
+        return -float(self._aux[key])
+
+    def get_vis(self, content=None):
+        """The last step's results, as the JAX `get_vis` gives them:
+        "scalars" {'loss_*' and 'metric_*': float} (one readback), "images"
+        {'img_*': numpy array} (the real 4-D images of 1 or 3 channels of
+        the last `test`), "histograms" {'weights': {'values': net_mask's
+        weight}} where a checkpoint carried one; None gives all three."""
+        if content not in (None, "scalars", "images", "histograms"):
+            raise ValueError(f"unknown get_vis content {content!r}")
+        vis = {}
+        if content in (None, "scalars"):
+            keys = [k for k in self._aux if k.startswith(("loss_", "metric_"))]
+            values = (torch.stack([self._aux[k].detach().reshape(()) for k in keys])
+                      .cpu().tolist() if keys else [])
+            vis["scalars"] = dict(zip(keys, values))
+        if content in (None, "images"):
+            vis["images"] = {
+                k: v.detach().cpu().numpy() for k, v in self._aux.items()
+                if k.startswith("img_") and v.ndim == 4 and v.shape[1] in (1, 3)
+                and not v.is_complex()
+            }
+        if content in (None, "histograms"):
+            vis["histograms"] = {}
+            weight = self._mask_entries.get("params/weight")
+            if weight is not None:
+                vis["histograms"]["weights"] = {"values": np.asarray(weight)}
+        return vis

@@ -45,11 +45,24 @@ def warp(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return grid_sample(img, grid, padding_mode="zeros")
 
 
-def gradient_loss(offset: torch.Tensor) -> torch.Tensor:
-    """Smoothness penalty: mean squared forward differences of the
-    displacement field [N, H, W, 2]."""
+def _squared_differences(offset: torch.Tensor):
+    """Squared forward differences of a displacement field [N, H, W, 2]
+    along its width and its height."""
     if offset.shape[-1] != 2:
         raise ValueError("not a 2-D grid")
     dx = torch.abs(offset[:, :, 1:, :] - offset[:, :, :-1, :])
     dy = torch.abs(offset[:, 1:, :, :] - offset[:, :-1, :, :])
-    return (torch.mean(dx * dx) + torch.mean(dy * dy)) / 2.0
+    return dx * dx, dy * dy
+
+
+def gradient_loss(offset: torch.Tensor) -> torch.Tensor:
+    """Smoothness penalty: mean squared forward differences of the
+    displacement field [N, H, W, 2]."""
+    dx2, dy2 = _squared_differences(offset)
+    return (torch.mean(dx2) + torch.mean(dy2)) / 2.0
+
+
+def gradient_loss_per_sample(offset: torch.Tensor) -> torch.Tensor:
+    """`gradient_loss` of each sample of [N, H, W, 2] alone -> [N]."""
+    dx2, dy2 = _squared_differences(offset)
+    return (torch.mean(dx2, dim=(1, 2, 3)) + torch.mean(dy2, dim=(1, 2, 3))) / 2.0

@@ -9,10 +9,14 @@ windows, loss = 1 - mean(S).
   * ssimloss: the loss through the autograd Function of `kernels/ssim.py`:
     the CUDA kernels forward and backward on CUDA tensors, their plain
     versions on CPU tensors.
+  * ssim_per_plane: the mean of the map over each plane's VALID windows,
+    from one launch of the forward kernel (the plain version on the CPU);
+    the eval metrics and the eval step's loss_sim read it.
 """
 
 import torch
 
+from ..kernels import on_card
 from ..kernels import ssim as kssim
 
 
@@ -29,3 +33,18 @@ def ssimloss(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     if X.is_complex() or Y.is_complex():
         raise TypeError("ssimloss takes real images")
     return kssim.SSIMLoss.apply(X, Y)
+
+
+def ssim_per_plane(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Mean SSIM over the VALID windows of each plane of real [N, C, H, W]
+    tensors -> [N, C] f32: the per-plane sums of `ssim_fwd_cuda` on a
+    card (`ssim_fwd_plain` on the CPU) over the windows a plane holds. No
+    gradient."""
+    if X.is_complex() or Y.is_complex():
+        raise TypeError("ssim_per_plane takes real images")
+    kssim._check(X, Y)
+    fwd = kssim.ssim_fwd_cuda if on_card(X) else kssim.ssim_fwd_plain
+    _, _, h, w = X.shape
+    with torch.no_grad():
+        return fwd(X.contiguous(), Y.contiguous()) / (
+            (h - kssim.WIN + 1) * (w - kssim.WIN + 1))
