@@ -108,7 +108,25 @@ failure:
      device memory; one 4-slice volume (padded to 6) against the CPU,
      with the test step in float64 on the CPU beside them, and two faults
      that metric_MI's bar must catch, read on the card's images. It draws
-     after every earlier phase.
+     after every earlier phase;
+ 12. the train CLI at full width, batch 4 (phase 12 alone, after phase
+     10's timed steps: `python3 -c "import sys, chip_smoke;
+     sys.exit(chip_smoke.train_cli_phases())"`): `engine/train.py`'s
+     `open_model` and `run` (the loader, PBSpline on the card, validation
+     through `CSModel.test`, checkpoints) through the reference's four
+     stages (commands_train_test.sh:48-65: Single-Modal and Multi-Modal
+     at --reg None, GAN-Only, Proposed at --reg Mixed with --load_nets
+     net_mask net_D net_G net_T), one epoch each on phantom volumes in
+     memory (2 of 6 slices, train at 352, val at 320), then one `--resume
+     ""` epoch of Proposed and the eval loop on its best.pt; each stage's
+     best.pt and final checkpoint, its warm-started nets equal to the
+     checkpoint before the first step, the resumed iteration count and
+     Adam steps, every logged loss finite, launch counts reset just before
+     and read just after each stage (steps x its step's and PBSpline's,
+     plus val batches x EVAL_LAUNCHES); the Proposed stage's steps/s
+     (host clock, loader included) beside phase 10's step time, the
+     phase's seconds and peak device memory. It draws after every earlier
+     phase.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -119,6 +137,8 @@ import concurrent.futures
 import contextlib
 import ctypes
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -198,6 +218,9 @@ MIXED_LAUNCHES = {"grid_sample_fwd": 2, "grid_sample_bwd_dgrid": 2,
 GAN_ONLY_LAUNCHES = {"grid_sample_fwd": 1, "grid_sample_bwd_dgrid": 1,
                      "grid_sample_bwd_dimg": 1}
 PBSPLINE_LAUNCHES = {"grid_sample_fwd": 2}
+# a None update warps |aux| for net_R with the grid detached (no d_grid,
+# no d_img) and runs one SSIM loss
+NONE_LAUNCHES = {"grid_sample_fwd": 1, "ssim_fwd": 1, "ssim_bwd": 1}
 # launches of each kernel a volume of the eval step (`CSModel.test`):
 # the warp of |aux| for net_R and forwardG's warp of [aux_TR, G(aux_RT)],
 # and one SSIM forward, whose per-plane sums give both loss_sim and
@@ -224,6 +247,23 @@ EVAL_RTOL = 1e-4  # SSIM, MAE, MSE and the losses
 # half a bin off). The bar admits about 40 crossings and stays under the
 # smallest fault
 EVAL_MI_ATOL = 1e-4
+# phase 12, the train CLI: phantom volumes a split and slices a volume
+# (train slices at the augmentation plane, val slices at the crop)
+CLI_VOLUMES = 2
+CLI_SLICES = 6
+# the reference's four stages (commands_train_test.sh:48-65): name, --reg,
+# the reference protocol ("None": single-modal, zeros), the stage whose
+# best.pt it warm-starts from and the nets it loads from there; then one
+# more epoch of the last stage through `--resume ""`
+CLI_STAGES = (
+    ("Single-Modal", "None", "None", None, None),
+    ("Multi-Modal", "None", "T1", "Single-Modal", ["net_mask"]),
+    ("GAN-Only", "GAN-Only", "T1", "Single-Modal", ["net_mask"]),
+    ("Proposed", "Mixed", "T1", "GAN-Only", ["net_mask", "net_D", "net_G", "net_T"]),
+)
+STEP_LAUNCHES = {"None": NONE_LAUNCHES, "GAN-Only": GAN_ONLY_LAUNCHES, "Mixed": MIXED_LAUNCHES}
+# numbers one phase measures for a later one to print beside its own
+MEASURED = {}
 POWER_ITERS = 50  # net_G's u and v: converged to f32 within these
 # parameters whose gradient a step makes exactly 0, so Adam leaves them:
 # the first cascade's dc_weight (its data term k - k_ref is 0, as the
@@ -1647,6 +1687,7 @@ def check_mixed(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     steps = len(batches)
     for i, step in enumerate(losses):
         log(f"Mixed step {i}: {step}")
+    MEASURED["mixed_ms"] = secs * 1e3 / TIMED_STEPS
     log(f"Mixed train (PBSpline {aug}->{shape}) on {model.device}: batch {batch}, "
         f"{steps} steps ({WARMUP_STEPS} warm-up), "
         f"{secs * 1e3 / TIMED_STEPS:.2f} ms per step, {TIMED_STEPS / secs:.3f} "
@@ -1982,6 +2023,178 @@ def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_
             raise AssertionError(f"eval metric_MI bar {EVAL_MI_ATOL} misses {fault}: "
                                  f"it moves MI by {moved}")
     return launches
+
+
+def cli_argv(logdir, reg, ref, shape, batch, net_scale, device):
+    """The train CLI's flags for one stage of the protocol: its weights,
+    PBSpline, one epoch, --seed 0 (commands_train_test.sh:27-38)."""
+    return ["--logdir", logdir, "--train", "phantoms", "--val", "phantoms", "--reg", reg,
+            "--protocals", "T2", ref, "--mask", "equispaced", "--sparsity", "0.25",
+            "--smooth_weight", "1000", "--gan_weight", "0.1", "--gan_sim_weight", "1",
+            "--sim_weight", "1", "--aux_aug", "PBSpline", "--batch_size", str(batch),
+            "--crop", str(shape), "--epoch", "1", "--intel_stop", "2e4", "--num_workers", "2",
+            "--net_scale", net_scale, "--seed", "0", "--device", str(device)]
+
+
+def check_warm_start(net, ckpt, nets):
+    """Raise unless every net of `nets` in `net` equals its entries in
+    checkpoint `ckpt` bit for bit."""
+    from spatialalignmentnetwork_tpu_torch.engine.checkpoint import ckpt_load
+
+    want, got = ckpt_load(ckpt), net.checkpoint(nets)
+    for name in nets:
+        if set(got[name]) != set(want[name]):
+            raise AssertionError(f"warm start {name}: entries differ from {ckpt}")
+        for key, w in want[name].items():
+            if not np.array_equal(np.asarray(got[name][key]), np.asarray(w)):
+                raise AssertionError(f"warm start {name} {key}: not the checkpoint's")
+
+
+def check_train_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scale="full",
+                    slices=CLI_SLICES, workdir=None):
+    """Phase 12: the train CLI's loop (`engine/train.py`: `open_model` and
+    `run`, the loader, augmentation on `device`, validation, checkpoints)
+    through the reference's four stages (CLI_STAGES), one epoch each, then
+    one `--resume ""` epoch of the last, on phantom volumes in memory
+    (CLI_VOLUMES of `slices` slices a split, train at 1.1x `shape`), then
+    the eval loop (`engine/eval.py::evaluate`) on the last best.pt. Checks:
+    each stage's best.pt and final checkpoint, each warm-started net equal
+    to its checkpoint before the first step, `--resume ""` continuing the
+    iteration count and Adam's steps, every logged scalar finite (but
+    val/loss_gan_sim of a stage that does not train net_G: its fresh
+    net_G's eval output overflows f32 at full width, as in the JAX
+    package), the eval's scalars finite, and on a card each stage's
+    launch counts (reset just before and read just after its `run`) as
+    derived: steps x (STEP_LAUNCHES + PBSPLINE_LAUNCHES) + val batches x
+    EVAL_LAUNCHES. Prints each stage's steps/s (host clock over the
+    epoch's training, loader included) and the Proposed stage's beside
+    phase 10's step time, the phase's seconds and peak device memory.
+    Returns the Proposed stage's launch counts. (The CPU tests run it at a
+    small shape and tiny widths on the CPU, where no kernel launches.)"""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine import train
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.engine.eval import evaluate
+
+    t_phase = time.perf_counter()
+    is_cuda = torch.device(device).type == "cuda"
+    if is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    aug = shape * 11 // 10
+    train_vols = [phantoms(rng, slices, aug) for _ in range(CLI_VOLUMES)]
+    val_vols = [phantoms(rng, slices, shape) for _ in range(CLI_VOLUMES)]
+
+    def dataset(vols, single):  # the CLI's slices [target, aux]; zeros for "None"
+        return [[full[i], np.zeros_like(aux[i]) if single else aux[i]]
+                for full, aux in vols for i in range(slices)]
+
+    root = workdir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                   "train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    stages = [(*stage, None) for stage in CLI_STAGES]
+    stages.append(("Proposed, --resume", "Mixed", "T1", None, None, "Proposed"))
+    launches, iters, steps_s = {}, {}, {}
+    every = train.SCALARS_EVERY
+    try:
+        for name, reg, ref, source, nets, resumes in stages:
+            logdir = os.path.join(root, resumes or name)
+            argv = cli_argv(logdir, reg, ref, shape, batch, net_scale, device)
+            if source:
+                argv += ["--resume", os.path.join(root, source, "ckpt", "best.pt"),
+                         "--load_nets", *nets]
+            if resumes:
+                argv += ["--resume", ""]
+            if reg == "Mixed":
+                argv += ["--save_opt"]  # the resumed epoch restores Adam's moments
+            args = train.build_parser().parse_args(argv)
+            for d in (logdir, os.path.join(logdir, "ckpt"), os.path.join(logdir, "res")):
+                os.makedirs(d, exist_ok=True)
+            net, iter_cnt, ckpt = train.open_model(args, train.build_cfg(args), device)
+            if nets:
+                check_warm_start(net, ckpt, nets)
+            if resumes:
+                adam = {int(st["step"]) for st in net.opt["net_R"].state.values()}
+                if iter_cnt != iters[resumes] or adam != {iters[resumes]}:
+                    raise AssertionError(
+                        f"--resume '' took iteration {iter_cnt} and Adam steps {adam} from "
+                        f"{ckpt}, expected {iters[resumes]}")
+            single = ref == "None"
+            train_set, val_set = dataset(train_vols, single), dataset(val_vols, single)
+            steps, val_batches = len(train_set) // batch, len(val_set) // batch
+            # every step's losses logged, but in the timed Proposed stage,
+            # which runs at the CLI's own cadence
+            train.SCALARS_EVERY = every if name == "Proposed" else 1
+            kernels.reset_launches()
+            rec = train.run(net, train_set, val_set, args, iter_cnt=iter_cnt)
+            got = dict(kernels.LAUNCHES)
+            iters[name] = rec["iter_cnt"]
+            epoch = rec["epochs"][0]
+            steps_s[name] = epoch["steps"] / epoch["seconds"]
+            # a stage that does not train net_G logs val/loss_gan_sim of its
+            # fresh net_G, whose eval-mode output with the spectral vectors
+            # of its build overflows f32 at full width (as in the JAX
+            # package): logged, not held
+            fresh_g = {"val/loss_gan_sim"} if reg not in ("Mixed", "GAN-Only") else set()
+            bad = [(t, i, v) for t, i, v in rec["scalars"]
+                   if t not in fresh_g and not np.isfinite(v)]
+            if bad or epoch["val"] is None:
+                raise AssertionError(f"train CLI {name}: non-finite or no logged scalars {bad}")
+            names = sorted(os.listdir(os.path.join(logdir, "ckpt")))
+            for want in ("best.pt", "ckpt_%010d.pt" % rec["iter_cnt"]):
+                if want not in names:
+                    raise AssertionError(f"train CLI {name}: no {want} in {names}")
+            if rec["iter_cnt"] != iter_cnt + steps or epoch["steps"] != steps:
+                raise AssertionError(f"train CLI {name}: iterations {iter_cnt} -> "
+                                     f"{rec['iter_cnt']}, {steps} steps expected")
+            want = add_counts(scaled(add_counts(STEP_LAUNCHES[reg], PBSPLINE_LAUNCHES), steps),
+                              scaled(EVAL_LAUNCHES, val_batches))
+            log(f"train CLI {name} (--reg {reg}, ref {ref}"
+                + (f", --load_nets {' '.join(nets)} from {source}" if nets else "")
+                + (f", --resume '' at {iter_cnt}" if resumes else "")
+                + f") on {net.device}: {steps} steps of {batch}, iterations {iter_cnt} -> "
+                f"{rec['iter_cnt']}, {epoch['seconds']:.3f} s training, {steps_s[name]:.3f} "
+                f"steps/s (host clock, loader included); val PSNR "
+                f"{epoch['val']['metric_PSNR']:.4f} dB over {val_batches} batches; "
+                f"launches {got}")
+            if is_cuda and got != want:
+                raise AssertionError(f"train CLI {name} launches {got}, expected {want}")
+            launches[name] = got
+            del net
+            # checkpoints no later stage loads (full width: 0.2-0.6 GB each)
+            for done in {"Multi-Modal": ["Multi-Modal"],
+                         "Proposed": ["Single-Modal", "GAN-Only"]}.get(name, []):
+                shutil.rmtree(os.path.join(root, done))
+        peak_stages = torch.cuda.max_memory_allocated() if is_cuda else 0
+        best = os.path.join(root, "Proposed", "ckpt", "best.pt")
+        model = CSModel(ckpt=best, device=device)
+        model.eval()
+        volumes = [[[full[i], aux[i]] for i in range(slices)] for full, aux in val_vols]
+        kernels.reset_launches()
+        stats = evaluate(model, volumes, EVAL_BUCKET)
+        got = dict(kernels.LAUNCHES)
+        if len(stats) != CLI_VOLUMES or not all(
+                np.isfinite(v) for s in stats for v in s.values()):
+            raise AssertionError(f"eval of the trained best.pt: {stats}")
+        if is_cuda and got != scaled(EVAL_LAUNCHES, CLI_VOLUMES):
+            raise AssertionError(f"eval of the trained best.pt: launches {got}")
+    finally:
+        train.SCALARS_EVERY = every
+        shutil.rmtree(root, ignore_errors=True)
+    mixed_ms = MEASURED.get("mixed_ms")
+    log(f"train CLI Proposed stage: {steps_s['Proposed']:.3f} steps/s, "
+        f"{1e3 / steps_s['Proposed']:.2f} ms a step (host clock over the epoch, loader, "
+        f"augmentation and the first step's start included)"
+        + (f"; phase 10's Mixed step {mixed_ms:.2f} ms (CUDA events): the CLI's host path "
+           f"adds {1e3 / steps_s['Proposed'] - mixed_ms:.2f} ms a step"
+           if mixed_ms else "; phase 10 not run"))
+    log(f"train CLI phase on {device}: {time.perf_counter() - t_phase:.1f} s"
+        + (f", peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+           f"({peak_stages / 2**20:.1f} MiB over the five epochs, before the eval of "
+           f"volumes padded to {EVAL_BUCKET} slices)" if is_cuda else ""))
+    return launches["Proposed"]
 
 
 def mi_controls(full, warped):
@@ -2647,6 +2860,27 @@ def eval_phases():
     return 0
 
 
+def train_cli_phases():
+    """Phase 12 alone, after phase 10's timed Mixed steps (`check_mixed`)
+    for the step time it prints beside the CLI's: build the grid sample and
+    SSIM kernels, then `check_mixed` and `check_train_cli`. 0 when they
+    pass."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels(["grid_sample.cu", "ssim.cu"])
+    rng = np.random.default_rng(0)
+    check_mixed(rng)
+    check_train_cli(rng)
+    return 0
+
+
 def main():
     import torch
 
@@ -2682,13 +2916,15 @@ def main():
     check_augment(rng)
     check_train_vs_cpu(rng, reg="Mixed")
     main_paths.append(check_eval(rng))  # draws after every earlier phase
+    cli = check_train_cli(rng)  # draws after every earlier phase
+    main_paths.append(cli)
     for e in entries:
-        # serving, the Rec and Mixed train steps and eval are the main paths (d_img
-        # runs on the Mixed one, and on its own); the loss kernels run on
-        # the registration-loss library's entry points, the conv on its own
-        # entry point's ladder
+        # serving, the Rec and Mixed train steps, eval and the train CLI's
+        # Proposed stage are the main paths (d_img runs on the Mixed ones,
+        # and on its own); the loss kernels run on the registration-loss
+        # library's entry points, the conv on its own entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":
-            paths = [autograd, mixed]
+            paths = [autograd, mixed, cli]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
         elif e["name"] in ("conv3x3", "conv3x3_bf16"):

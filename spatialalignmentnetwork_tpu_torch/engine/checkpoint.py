@@ -21,6 +21,15 @@ Such an entry comes back as its state dict in numpy, under torch key
 names (`is_reference_entry` tells it from a native entry); `CSModel`
 loads it into the module by those names. Torch files are read with
 `weights_only=True`: no code from a checkpoint runs.
+
+The re-pack CLI rewrites a checkpoint of any layout as a native
+directory (the JAX package's checkpoint.py:157-178):
+
+    python -m spatialalignmentnetwork_tpu_torch.engine.checkpoint CKPT [OUT]
+
+With OUT it writes the copy there; without, it rewrites CKPT in place (a
+single file is replaced by the directory only once that is written
+whole).
 """
 
 import os
@@ -170,3 +179,34 @@ def ckpt_save(ckpt: dict, folder: str):
     os.replace(tmp, folder)
     if os.path.exists(old):  # also one left by a save cut between the renames
         shutil.rmtree(old)
+
+
+def repack(src: str, out: str = None):
+    """Load checkpoint `src` (any layout `ckpt_load` reads) and write it as
+    a native directory at `out`, or in place of `src`."""
+    ckpt = ckpt_load(src)
+    if out is not None:
+        ckpt_save(ckpt, out)
+    elif os.path.isdir(src):
+        ckpt_save(ckpt, src)  # replaces the directory only once the new one is whole
+    else:
+        # a single torch file: the directory is written beside it first, the
+        # file removed only after that; `ckpt_load` finds a `.repack` left by
+        # a cut between the two
+        ckpt_save(ckpt, src + ".repack")
+        os.remove(src)
+        os.replace(src + ".repack", src)
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="re-pack a checkpoint as a native directory")
+    p.add_argument("ckpt", help="checkpoint of any layout")
+    p.add_argument("out", nargs="?", default=None, help="where to write (default: in place)")
+    args = p.parse_args(argv)
+    repack(args.ckpt, args.out)
+
+
+if __name__ == "__main__":
+    main()

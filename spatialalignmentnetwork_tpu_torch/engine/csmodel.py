@@ -121,7 +121,10 @@ def _with_zero_chan(x):
 class CSModel:
     """Facade owning the four nets, their optimizers and the k-space mask."""
 
-    def __init__(self, cfg=None, ckpt=None, device="cuda", seed=0):
+    def __init__(self, cfg=None, ckpt=None, objects=None, device="cuda", seed=0):
+        """From `cfg`, or from checkpoint `ckpt` (its own config unless
+        `cfg` is given); `objects` names the nets to load from it, the
+        others built fresh from `seed` (`load`)."""
         self.device = resolve_device(device)
         self.seed = seed
         self.training = True
@@ -129,7 +132,9 @@ class CSModel:
         self._aux = {}
         f32_precision()
         if ckpt is not None:
-            self.load(ckpt, cfg)
+            self.load(ckpt, cfg, objects)
+        elif objects is not None:
+            raise ValueError("objects names nets to load: it needs a checkpoint")
         else:
             self.build(cfg)
 
@@ -304,26 +309,38 @@ class CSModel:
                 tensors[key] = torch.zeros_like(buf)
         module.load_state_dict(tensors, strict=True)
 
-    def save(self, path, with_opt=False):
-        """Write a checkpoint directory the JAX `CSModel` loads: the four
-        nets (params, and the BatchNorm statistics and spectral-norm
-        vectors as `stats`), net_mask (`pruned` and its other entries as
-        loaded) and the config; with `with_opt`, every net's Adam moments
-        as the JAX package lays out its `opt_state` (optax's mu, nu, count
-        for torch's exp_avg, exp_avg_sq, step), and net_mask's as loaded,
-        or as the JAX package initialises them (count 0, zero moments)."""
+    def save(self, path, objects=None, with_opt=False):
+        """Write `checkpoint(objects, with_opt)` as a checkpoint directory
+        the JAX `CSModel` loads."""
+        ckpt_save(self.checkpoint(objects, with_opt), path)
+
+    def checkpoint(self, objects=None, with_opt=False) -> dict:
+        """The checkpoint entries {'net_X': flat dict, ..., 'config'}: the
+        four nets (params, and the BatchNorm statistics and spectral-norm
+        vectors as `stats`) and net_mask (`pruned` and its other entries as
+        loaded), or of the nets only those that `objects` names; with
+        `with_opt`, every net's Adam moments as the JAX package lays out
+        its `opt_state` (optax's mu, nu, count for torch's exp_avg,
+        exp_avg_sq, step), and net_mask's as loaded, or as the JAX package
+        initialises them (count 0, zero moments)."""
+        names = NET_NAMES if objects is None else objects
+        unknown = [name for name in names if name not in NET_NAMES]
+        if unknown:
+            raise KeyError(f"unknown nets {unknown}")
         ckpt = {}
         for name in NETS:
-            sd = getattr(self, name).state_dict()
-            tensors = {k: v for k, v in sd.items()
-                       if not k.endswith("num_batches_tracked")}
-            ckpt[name] = from_jax.to_jax_entries(tensors, self._entries(name))
-        ckpt["net_mask"] = {**self._mask_entries, "pruned": self.pruned.cpu().numpy()}
+            if name in names:
+                sd = getattr(self, name).state_dict()
+                tensors = {k: v for k, v in sd.items()
+                           if not k.endswith("num_batches_tracked")}
+                ckpt[name] = from_jax.to_jax_entries(tensors, self._entries(name))
+        if "net_mask" in names:
+            ckpt["net_mask"] = {**self._mask_entries, "pruned": self.pruned.cpu().numpy()}
         if with_opt:
             ckpt["opt_state"] = {**self._fresh_mask_opt(), **self._mask_opt,
                                  **self._opt_entries()}
         ckpt["config"] = self.cfg
-        ckpt_save(ckpt, path)
+        return ckpt
 
     def _fresh_mask_opt(self) -> dict:
         """net_mask's `opt_state` as a fresh JAX build holds it: count 0 and

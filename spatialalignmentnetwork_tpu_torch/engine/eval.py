@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..data import augment
+from ..data.loader import to_device
 from ..data.paired_dataset import get_paired_volume_datasets
 from ..ops.crop import center_crop
 from .csmodel import CSModel, resolve_device
@@ -105,28 +106,21 @@ def evaluate(net, volumes, bucket=16, aux_aug=-1.0, save=None, draws=None):
     directory for the volumes and grids, or None."""
     cfg = net.cfg
     device = net.device
-    pin = device.type == "cuda"
     gen = None
     if aux_aug > 0 and draws is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(time.time()))
     stat_eval = []
 
-    def put(a):
-        t = torch.from_numpy(a)
-        if pin:
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
-
     def stage(volume):
         """Host stack + bucket pad + a non-blocking copy for one volume."""
         host = [np.stack(s, axis=0) for s in zip(*[volume[j] for j in range(len(volume))])]
         if bucket > 0:
             host, valid, restore = _bucket_pad(host, bucket)
-            valid = put(valid)
+            valid = to_device(valid, device)
         else:
             valid, restore = None, np.arange(host[0].shape[0])
-        return [put(x) for x in host], valid, restore
+        return [to_device(x, device) for x in host], valid, restore
 
     def collect(i, kept, restore):
         """Host readbacks for a volume whose step was already dispatched."""
