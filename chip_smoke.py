@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training (the Rec step and the
-reference's own Mixed protocol) and eval paths, its registration-loss
-library and its 3x3 conv on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, training (the Rec step, the
+reference's own Mixed protocol and mask learning) and eval paths, its
+registration-loss library and its 3x3 conv on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -126,7 +127,24 @@ failure:
      plus val batches x EVAL_LAUNCHES); the Proposed stage's steps/s
      (host clock, loader included) beside phase 10's step time, the
      phase's seconds and peak device memory. It draws after every earlier
-     phase.
+     phase;
+ 13. mask learning at full width (phase 13 alone: `python3 -c "import sys,
+     chip_smoke; sys.exit(chip_smoke.mask_phases())"`): LOUPE at sparsity
+     0.25 (80 of 320 lines kept), batch 4: 2 warm-up and 3 timed Rec steps
+     with the mask fixed, then as many learning it from the same weights
+     and batches (CUDA events, both times printed, the learned steps' peak
+     device memory), one None and one Mixed step learning it; after every
+     learned step the logits moved, 80 lines kept, every loss finite, the
+     launch counts (REC_LAUNCHES, NONE_LAUNCHES, MIXED_LAUNCHES); one
+     learned Rec step at batch 2 against the CPU and float64 as in phase
+     7, net_mask's logits included, and its planted fault (the hard mask
+     for the soft sample) failing the logits' bar; Taylor saliency over 3
+     batches of 4 (TAYLOR_LAUNCHES a step, its ms) against float64 at
+     TAYLOR_TOL, then prune(8); the train CLI's `--mask loupe --learn_mask
+     --reg Rec` and `--mask taylor --prune_every 2 --prune_num 8 --reg
+     None`, one epoch each on phase 12's volumes, each final checkpoint
+     reloading with the live `pruned` and weight. It draws after every
+     earlier phase.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -261,7 +279,35 @@ CLI_STAGES = (
     ("GAN-Only", "GAN-Only", "T1", "Single-Modal", ["net_mask"]),
     ("Proposed", "Mixed", "T1", "GAN-Only", ["net_mask", "net_D", "net_G", "net_T"]),
 )
-STEP_LAUNCHES = {"None": NONE_LAUNCHES, "GAN-Only": GAN_ONLY_LAUNCHES, "Mixed": MIXED_LAUNCHES}
+# a Rec update, with the mask fixed or learned: the warp of |aux| with the
+# grid's gradient (|aux| needs none: no d_img) and one SSIM loss. Learning
+# a LOUPE mask adds no launch to any regime: the logits' gradient reaches
+# net_T's input and the grid, whose d_grid the step runs already
+REC_LAUNCHES = {"grid_sample_fwd": 1, "grid_sample_bwd_dgrid": 1, "ssim_fwd": 1, "ssim_bwd": 1}
+STEP_LAUNCHES = {"None": NONE_LAUNCHES, "Rec": REC_LAUNCHES, "GAN-Only": GAN_ONLY_LAUNCHES,
+                 "Mixed": MIXED_LAUNCHES}
+# phase 13, mask learning: LOUPE at MASK_SPARSITY keeps int(MASK_SPARSITY
+# W + 0.5) lines (80 of 320)
+MASK_SPARSITY = 0.25
+# a Taylor step (`CSModel.taylor_step`): the eval-mode Rec forward, and the
+# backward to a per-line k-space multiplier, which reaches net_T's input
+# and the grid (d_grid) and the SSIM loss; no weight gradient
+TAYLOR_LAUNCHES = dict(REC_LAUNCHES)
+TAYLOR_BATCHES = 3
+TAYLOR_PRUNE = 8
+# the Taylor saliency (the mean over TAYLOR_BATCHES) on the card against
+# the CPU in float64, as a fraction of its max. A line's saliency is the
+# square of the loss's gradient with respect to the line's multiplier, so
+# an error e of that gradient (relative to its max) is one of about 2e of
+# the saliency's max: the bar is the step check's gradient bar, doubled.
+# Readings on NVIDIA H100 80GB HBM3, 700 W: on `mask_phases()`'s draws the
+# saliency 1.48e-2 with the LOUPE logits' gradient (through the same
+# lines) at 6.49e-3 (the CPU's f32 6.65e-3); on the whole script's draws,
+# ill-conditioned (min|sens| 3.7e-4 < SENS_MIN), 3.94e-2 with the logits'
+# gradient at 2.87e-2 (the CPU's f32 2.46e-2)
+TAYLOR_TOL = 2 * STEP_GRAD_TOL
+# the train CLI's prune schedule in phase 13 (--prune_every, --prune_num)
+CLI_PRUNE_EVERY = 2
 # numbers one phase measures for a later one to print beside its own
 MEASURED = {}
 POWER_ITERS = 50  # net_G's u and v: converged to f32 within these
@@ -1600,8 +1646,7 @@ def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     if model.device.type == "cuda":
         log(f"train peak device memory: "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        want = {"grid_sample_fwd": steps, "grid_sample_bwd_dgrid": steps,
-                "ssim_fwd": steps, "ssim_bwd": steps}
+        want = scaled(REC_LAUNCHES, steps)
         if launches != want:  # grid_sample_bwd_dimg: |aux| needs no gradient
             raise AssertionError(f"train launches {launches}, expected {want}")
     moved = [float((p.detach() - b).abs().max())
@@ -1752,72 +1797,99 @@ def check_gan_only_and_accum(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH)
     return add_counts(*out.values())
 
 
-def step_grads_f64(cfg, entries, full, aux):
-    """One step's gradients of every net it steps, on the CPU in float64
-    (nets, inputs and every op but the warp, whose plain version reads its
-    grid in f32); and the range of the sensitivity maps' magnitude before
-    their unit-magnitude normalisation."""
+MODULES = ("net_T", "net_R", "net_G", "net_D", "net_mask")
+
+
+def f64_model(cfg, entries):
+    """A CSModel on the CPU from `entries`, every module in float64."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
-    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
-    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
 
     model = CSModel(cfg=cfg, device="cpu", seed=0)
     model.load_entries(entries)
-    for name in ("net_T", "net_R", "net_G", "net_D"):
+    for name in MODULES:
         getattr(model, name).to(torch.float64)
+    return model
+
+
+def step_grads_f64(cfg, entries, full, aux, draws=None):
+    """One step's gradients of every net it steps, on the CPU in float64
+    (nets, inputs and every op but the warp, whose plain version reads its
+    grid in f32), learning the mask from `draws` where given; and the
+    range of the sensitivity maps' magnitude before their unit-magnitude
+    normalisation, on the step's input."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
+    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
+
+    model = f64_model(cfg, entries)
     model._batch = (torch.from_numpy(full).to(torch.complex128),
                     torch.from_numpy(aux).to(torch.complex128))
-    model.update()
     with torch.no_grad():
-        k = model._prepare(*model._batch, model.pruned)["img_k_sampled"]
+        soft = (model._loupe_sample(full.shape[0], True, torch.from_numpy(draws[0]))[0]
+                if draws is not None else None)
+        k = model._prepare(*model._batch, model.pruned, soft)["img_k_sampled"]
         acs = ifft2(k * acs_mask(k.shape[-1], model.num_low_frequencies)[None, None, None, :])
         n, c, h, w = acs.shape
         sens = rss(model.net_R.sens_net.norm_unet(acs.reshape(n * c, 1, h, w)))
+    model.update(draws)
     return net_grads(model), (float(sens.min()), float(sens.median()), float(sens.max()))
 
 
 def net_grads(model):
     """{net: {param: grad on the CPU}} of the nets the last step stepped."""
     out = {}
-    for name in ("net_T", "net_R", "net_G", "net_D"):
+    for name in MODULES:
         grads = {k: p.grad for k, p in getattr(model, name).named_parameters()}
-        if all(g is not None for g in grads.values()):
+        if grads and all(g is not None for g in grads.values()):
             out[name] = {k: g.detach().cpu() for k, g in grads.items()}
     return out
 
 
-def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2, reg="Rec"):
+def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2, reg="Rec", learn_mask=False):
     """One train step of regime `reg` (the Rec recipe, or the reference's
-    for Mixed and GAN-Only) from the same weights on `device` and on the
-    CPU, and its gradients in f64 on the CPU: step-0 losses and the
-    gradient of every parameter of every net the step steps (net_D's from
-    the D-phase), at STEP_GRAD_TOL; on a draw where the sensitivity maps
-    come below SENS_MIN, net_R's sensitivity-net leaves at SENS_ILL_TOL."""
+    for Mixed and GAN-Only; with `learn_mask`, learning a LOUPE mask from
+    thresholds drawn here, the same on every device) from the same
+    weights on `device` and on the CPU, and its gradients in f64 on the
+    CPU: step-0 losses and the gradient of every parameter of every net
+    the step steps (net_D's from the D-phase, net_mask's logits), at
+    STEP_GRAD_TOL; on a draw where the sensitivity maps come below
+    SENS_MIN, net_R's sensitivity-net leaves at SENS_ILL_TOL. Learning the
+    mask, a planted fault (the hard mask in place of the soft sample, so
+    that no gradient reaches the logits) must fail the logits' bar."""
     from spatialalignmentnetwork_tpu_torch.engine.csmodel import GRAD_NETS, CSModel
+    from spatialalignmentnetwork_tpu_torch.ops import masks as masks_lib
 
-    cfg = train_cfg(shape) if reg == "Rec" else mixed_cfg(shape, reg=reg)
+    if learn_mask:
+        cfg = mask_cfg(shape, reg)
+    else:
+        cfg = train_cfg(shape) if reg == "Rec" else mixed_cfg(shape, reg=reg)
+    label = f"{reg} (LOUPE learned)" if learn_mask else reg
     models = {dev: CSModel(cfg=cfg, device=dev, seed=0) for dev in (device, "cpu")}
     entries = random_entries(models["cpu"], rng)
     full, aux = phantoms(rng, batch, shape)
+    draws = ((rng.random((batch, shape), dtype=np.float32),
+              rng.random((1, shape), dtype=np.float32)) if learn_mask else None)
     grads, losses, secs = {}, {}, {}
     for dev, model in models.items():
         model.load_entries(entries)
         model.set_input(full, aux)
         t0 = time.perf_counter()
-        model.update()
+        model.update(draws)
         losses[dev] = model.get_vis("scalars")["scalars"]
         secs[dev] = time.perf_counter() - t0
         grads[dev] = net_grads(model)
     t0 = time.perf_counter()
-    ref, sens = step_grads_f64(cfg, entries, full, aux)
+    ref, sens = step_grads_f64(cfg, entries, full, aux, draws)
     secs["cpu f64"] = time.perf_counter() - t0
-    log(f"one {reg} step, batch {batch}, {shape}x{shape}, {device} vs cpu: "
+    log(f"one {label} step, batch {batch}, {shape}x{shape}, {device} vs cpu: "
         f"losses {losses[device]} vs {losses['cpu']} (rtol {LOSS_RTOL}); "
         f"step seconds {secs}; |sens| before normalisation min, median, "
         f"max {sens}")
     stepped = set(GRAD_NETS[reg]) | ({"net_D"} if reg != "Rec" else set())
+    stepped |= {"net_mask"} if learn_mask else set()
     if not set(ref) == set(grads[device]) == stepped:
         raise AssertionError(f"{reg} step gradients of {sorted(grads[device])}, "
                              f"expected {sorted(stepped)}")
@@ -1832,24 +1904,51 @@ def check_train_vs_cpu(rng, device="cuda", shape=SHAPE, batch=2, reg="Rec"):
 
     err = {dev: grad_error(grads[dev], ref, well) for dev in (device, "cpu")}
     err["card vs cpu"] = grad_error(grads[device], grads["cpu"], well)
-    log(f"{reg} gradients, worst leaf's max |diff| / net's max |grad| (leaf): "
+    log(f"{label} gradients, worst leaf's max |diff| / net's max |grad| (leaf): "
         f"{device} f32 vs cpu f64 {err[device]} (tol {STEP_GRAD_TOL}); cpu "
         f"f32 vs cpu f64 {err['cpu']}; {device} vs cpu f32 "
         f"{err['card vs cpu']}")
     ill_err = {dev: grad_error(grads[dev], ref, ill) for dev in (device, "cpu")}
     if ill_err[device]:
         named = sorted(k for k in ref["net_R"] if ill("net_R", k))
-        log(f"{reg} gradients of net_R's {len(named)} sensitivity-net leaves, "
+        log(f"{label} gradients of net_R's {len(named)} sensitivity-net leaves, "
             f"ill-conditioned at min|sens| {sens[0]:.3g} < {SENS_MIN} "
             f"({named[0]} ... {named[-1]}): {device} f32 vs cpu f64 "
             f"{ill_err[device]['net_R']} (tol {SENS_ILL_TOL}); cpu f32 vs cpu "
             f"f64 {ill_err['cpu']['net_R']}")
-    bars = [(err[device], STEP_GRAD_TOL), (ill_err[device], SENS_ILL_TOL)]
-    for errs, bar in bars:
-        for name, (e, leaf) in errs.items():
-            if not e <= bar:
-                raise AssertionError(f"{reg} {name}: {device} gradients differ from "
-                                     f"f64 by {e} of the net's max at {leaf} (bar {bar})")
+    fails = grad_failures(grads[device], ref, ill)
+    if fails:
+        name, e, leaf, bar = fails[0]
+        raise AssertionError(f"{reg} {name}: {device} gradients differ from "
+                             f"f64 by {e} of the net's max at {leaf} (bar {bar})")
+    if not learn_mask:
+        return
+    # the planted fault: the hard mask where the soft sample belongs
+    sample = masks_lib.loupe_sample
+    masks_lib.loupe_sample = lambda *a, **kw: sample(*a, **{**kw, "training": False})
+    try:
+        faulty = CSModel(cfg=cfg, device=device, seed=0)
+        faulty.load_entries(entries)
+        faulty.set_input(full, aux)
+        faulty.update(draws)
+    finally:
+        masks_lib.loupe_sample = sample
+    fails = grad_failures(net_grads(faulty), ref, ill)
+    log(f"{label} planted fault (the hard mask for the soft sample) on {device}: "
+        f"failing nets {[(n, round(e, 4), leaf) for n, e, leaf, _ in fails]}")
+    if "net_mask" not in [f[0] for f in fails]:
+        raise AssertionError("the planted fault passed the logits' gradient bar")
+
+
+def grad_failures(got, ref, ill):
+    """The leaves of the gradients `got` outside their bar against the
+    float64 `ref`: [(net, error, leaf, bar)], STEP_GRAD_TOL for each net's
+    worst well-conditioned leaf, SENS_ILL_TOL for the leaves `ill` names."""
+    fails = []
+    for errs, bar in ((grad_error(got, ref, lambda n, k: not ill(n, k)), STEP_GRAD_TOL),
+                      (grad_error(got, ref, ill), SENS_ILL_TOL)):
+        fails += [(name, e, leaf, bar) for name, (e, leaf) in errs.items() if not e <= bar]
+    return fails
 
 
 def check_augment(rng, device="cuda", shape=AUG_SHAPE, batch=TRAIN_BATCH):
@@ -2025,15 +2124,33 @@ def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_
     return launches
 
 
-def cli_argv(logdir, reg, ref, shape, batch, net_scale, device):
+def cli_argv(logdir, reg, ref, shape, batch, net_scale, device, mask="equispaced"):
     """The train CLI's flags for one stage of the protocol: its weights,
     PBSpline, one epoch, --seed 0 (commands_train_test.sh:27-38)."""
     return ["--logdir", logdir, "--train", "phantoms", "--val", "phantoms", "--reg", reg,
-            "--protocals", "T2", ref, "--mask", "equispaced", "--sparsity", "0.25",
+            "--protocals", "T2", ref, "--mask", mask, "--sparsity", "0.25",
             "--smooth_weight", "1000", "--gan_weight", "0.1", "--gan_sim_weight", "1",
             "--sim_weight", "1", "--aux_aug", "PBSpline", "--batch_size", str(batch),
             "--crop", str(shape), "--epoch", "1", "--intel_stop", "2e4", "--num_workers", "2",
             "--net_scale", net_scale, "--seed", "0", "--device", str(device)]
+
+
+def cli_volumes(rng, slices, shape):
+    """Phase 12's phantom volumes: CLI_VOLUMES a split of `slices` slices,
+    train at the augmentation plane, val at `shape`; drawn once a size and
+    kept for phase 13."""
+    key = ("cli_volumes", slices, shape)
+    if key not in MEASURED:
+        aug = shape * 11 // 10
+        MEASURED[key] = ([phantoms(rng, slices, aug) for _ in range(CLI_VOLUMES)],
+                         [phantoms(rng, slices, shape) for _ in range(CLI_VOLUMES)])
+    return MEASURED[key]
+
+
+def cli_slices(vols, single=False):
+    """The CLI's slices [target, aux] of volumes; aux zeros when `single`."""
+    return [[full[i], np.zeros_like(aux[i]) if single else aux[i]]
+            for full, aux in vols for i in range(full.shape[0])]
 
 
 def check_warm_start(net, ckpt, nets):
@@ -2083,13 +2200,10 @@ def check_train_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scal
     if is_cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    aug = shape * 11 // 10
-    train_vols = [phantoms(rng, slices, aug) for _ in range(CLI_VOLUMES)]
-    val_vols = [phantoms(rng, slices, shape) for _ in range(CLI_VOLUMES)]
+    train_vols, val_vols = cli_volumes(rng, slices, shape)
 
     def dataset(vols, single):  # the CLI's slices [target, aux]; zeros for "None"
-        return [[full[i], np.zeros_like(aux[i]) if single else aux[i]]
-                for full, aux in vols for i in range(slices)]
+        return cli_slices(vols, single)
 
     root = workdir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                    "train_cli")
@@ -2195,6 +2309,322 @@ def check_train_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scal
            f"({peak_stages / 2**20:.1f} MiB over the five epochs, before the eval of "
            f"volumes padded to {EVAL_BUCKET} slices)" if is_cuda else ""))
     return launches["Proposed"]
+
+
+# ---------------------------------------------------------- phase 13: masks
+def mask_cfg(shape=SHAPE, reg="Rec", mask="loupe", learn_mask=True):
+    """The Rec recipe (the reference's for Mixed and GAN-Only) with a mask
+    of `mask` kind at MASK_SPARSITY, learned with `learn_mask`."""
+    cfg = mixed_cfg(shape, reg=reg) if reg in ("Mixed", "GAN-Only") else train_cfg(shape)
+    cfg.reg = reg
+    cfg.mask = mask
+    cfg.sparsity = MASK_SPARSITY
+    cfg.learn_mask = learn_mask
+    return cfg
+
+
+def kept_lines(shape):
+    return int(MASK_SPARSITY * shape + 0.5)
+
+
+def check_mask_step(label, before, after, pruned, losses, shape):
+    """Raise unless a learned-mask step moved the logits (`before` ->
+    `after`), kept kept_lines() lines in `pruned` and has finite losses."""
+    faults = []
+    if not float((after - before).abs().max()) > 0:
+        faults.append("the logits did not move")
+    kept = int((~pruned).sum())
+    if kept != kept_lines(shape):
+        faults.append(f"{kept} lines kept, expected {kept_lines(shape)}")
+    if not all(np.isfinite(float(v)) for v in losses.values()):
+        faults.append(f"non-finite loss {losses}")
+    if faults:
+        raise AssertionError(f"{label}: {'; '.join(faults)}")
+
+
+def check_loupe(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
+    """LOUPE at full width: WARMUP + TIMED Rec updates with the mask fixed
+    (learn_mask off), then as many learning it, from the same weights and
+    batches, each on CUDA events; then one None and one Mixed update
+    learning it. After every learned step: the logits moved, exactly
+    kept_lines() lines kept, every loss finite; on a card the launch
+    counts of each regime (REC_LAUNCHES, NONE_LAUNCHES, MIXED_LAUNCHES).
+    Prints both Rec step times and the learned steps' peak device memory.
+    Returns the learned steps' launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    is_cuda = torch.device(device).type == "cuda"
+    model = CSModel(cfg=mask_cfg(shape, learn_mask=False), device=device, seed=0)
+    entries = random_entries(model, rng)
+    model.load_entries(entries)
+    batches = [phantoms(rng, batch, shape) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    fixed = model.net_mask.weight.detach().clone()
+    plain_secs, _, _ = timed_steps(model, batches, lambda b: b)
+    if not torch.equal(model.net_mask.weight.detach(), fixed):
+        raise AssertionError("LOUPE without learn_mask: the logits moved")
+    del model
+    model = CSModel(cfg=mask_cfg(shape), device=device, seed=0)
+    model.load_entries(entries)
+    if is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    steps = []
+    for i, b in enumerate(batches):
+        if i == WARMUP_STEPS:
+            if is_cuda:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+        before = model.net_mask.weight.detach().clone()
+        model.set_input(*b)
+        model.update()
+        steps.append((before, model.net_mask.weight.detach().clone(), model.pruned.clone(),
+                      dict(model._aux)))
+    if is_cuda:
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+    else:
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for i, step in enumerate(steps):
+        check_mask_step(f"LOUPE Rec step {i}", *step, shape)
+    ms, plain_ms = secs * 1e3 / TIMED_STEPS, plain_secs * 1e3 / TIMED_STEPS
+    MEASURED["loupe_rec_ms"] = ms
+    clock = "CUDA events" if is_cuda else "host clock"
+    log(f"LOUPE Rec train (learned mask, {kept_lines(shape)} of {shape} lines) on "
+        f"{model.device}: batch {batch}, {shape}x{shape}, {len(batches)} steps "
+        f"({WARMUP_STEPS} warm-up), {ms:.2f} ms per step ({clock}), the Rec step "
+        f"with the mask fixed {plain_ms:.2f} ms ({ms / plain_ms:.3f}x); last losses "
+        f"{ {k: float(v) for k, v in steps[-1][3].items()} }; launches {launches}")
+    if is_cuda:
+        log(f"LOUPE Rec train peak device memory: "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        want = scaled(REC_LAUNCHES, len(batches))
+        if launches != want:
+            raise AssertionError(f"LOUPE Rec launches {launches}, expected {want}")
+    out = [launches]
+    for reg, want in (("None", NONE_LAUNCHES), ("Mixed", MIXED_LAUNCHES)):
+        del model
+        model = CSModel(cfg=mask_cfg(shape, reg), device=device, seed=0)
+        model.load_entries(entries)
+        model.set_input(*phantoms(rng, batch, shape))
+        before = model.net_mask.weight.detach().clone()
+        if is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        model.update()
+        got = dict(kernels.LAUNCHES)
+        losses = model.get_vis("scalars")["scalars"]
+        log(f"LOUPE {reg} step (learned mask) on {model.device}: batch {batch}, "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, one step, its "
+            f"first); losses {losses}; launches {got}")
+        check_mask_step(f"LOUPE {reg} step", before, model.net_mask.weight.detach(),
+                        model.pruned, losses, shape)
+        if is_cuda and got != want:
+            raise AssertionError(f"LOUPE {reg} launches {got}, expected {want}")
+        out.append(got)
+    return add_counts(*out)
+
+
+def check_taylor(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, num=TAYLOR_PRUNE):
+    """Taylor saliency at full width: one warm-up `taylor_step`, dropped
+    by `prune(0)`, then TAYLOR_BATCHES steps on CUDA events and
+    `prune(num)`; the same steps on the CPU in float64. Checks: the mean
+    saliency within TAYLOR_TOL of float64's max, `num` more lines pruned,
+    the pruned set float64's for every line whose float64 saliency lies
+    farther than twice the measured error from the cut (such a line cannot
+    cross it; all of them where the gap at the cut is wider than that),
+    no BatchNorm statistic moved,
+    on a card TAYLOR_LAUNCHES a step. Returns the launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    is_cuda = torch.device(device).type == "cuda"
+    cfg = mask_cfg(shape, "None", mask="taylor", learn_mask=False)
+    model = CSModel(cfg=cfg, device=device, seed=0)
+    entries = random_entries(model, rng)
+    model.load_entries(entries)
+    data = [phantoms(rng, batch, shape) for _ in range(TAYLOR_BATCHES + 1)]
+    model.set_input(*data[0])
+    model.taylor_step()
+    model.prune(0)
+    stats = {k: v.clone() for k, v in model.net_T.state_dict().items()}
+    pruned0 = model.pruned.clone()
+    if is_cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    for b in data[1:]:
+        model.set_input(*b)
+        model.taylor_step()
+    if is_cuda:
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+    else:
+        secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    model.prune(num)
+    got = model.net_mask.weight.detach().cpu().double()  # the mean: none was pruned
+    moved = [k for k, v in model.net_T.state_dict().items() if not torch.equal(v, stats[k])]
+    t0 = time.perf_counter()
+    ref_model = f64_model(cfg, entries)
+    for b in data[1:]:
+        ref_model._batch = tuple(torch.from_numpy(x).to(torch.complex128) for x in b)
+        ref_model.taylor_step()
+    ref = torch.stack(ref_model._taylor_values).mean(0)
+    f64_secs = time.perf_counter() - t0
+    top = float(ref.abs().max())
+    err = float((got - ref).abs().max()) / top
+    order = torch.argsort(ref)
+    gap = float(ref[order[num]] - ref[order[num - 1]]) / top
+    want_set = set(order[:num].tolist())
+    got_set = set(torch.nonzero(model.pruned.cpu() & ~pruned0.cpu()).flatten().tolist())
+    # a line whose float64 saliency lies farther than 2 err from the cut
+    # cannot cross it: the pruned set is held there
+    cut = float(ref[order[num - 1]] + ref[order[num]]) / 2
+    crossed = sorted(i for i in range(ref.shape[0])
+                     if abs(float(ref[i]) - cut) > 2 * err * top
+                     and (i in got_set) != (float(ref[i]) < cut))
+    ms = secs * 1e3 / TAYLOR_BATCHES
+    rec_ms = MEASURED.get("loupe_rec_ms")
+    clock = "CUDA events" if is_cuda else "host clock"
+    log(f"Taylor step on {model.device}: batch {batch}, {shape}x{shape}, {ms:.2f} ms a step "
+        f"({clock}, {TAYLOR_BATCHES} steps)"
+        + (f", {ms / rec_ms:.3f} of the LOUPE Rec step" if rec_ms else "")
+        + f"; launches {launches}; saliency max|diff| {err:.3g} of float64's max (tol "
+        f"{TAYLOR_TOL}; float64 {f64_secs:.1f} s on the cpu); prune({num}): lines "
+        f"{sorted(got_set)}, float64's {sorted(want_set)}, gap at the cut {gap:.3g} of "
+        f"the max; lines held to float64's side of the cut "
+        f"{sum(abs(float(v) - cut) > 2 * err * top for v in ref)} of {ref.shape[0]}")
+    if not err <= TAYLOR_TOL:
+        raise AssertionError(f"Taylor saliency: {err} of float64's max (bar {TAYLOR_TOL})")
+    if len(got_set) != num or int(model.pruned.sum()) != int(pruned0.sum()) + num:
+        raise AssertionError(f"prune({num}) pruned {sorted(got_set)}")
+    if crossed:
+        raise AssertionError(f"prune({num}): lines {sorted(got_set)}, float64's "
+                             f"{sorted(want_set)}; lines {crossed} cross the cut by "
+                             f"more than twice the saliency's error")
+    if moved:
+        raise AssertionError(f"taylor_step moved net_T's statistics {moved[:3]}")
+    if is_cuda and launches != scaled(TAYLOR_LAUNCHES, TAYLOR_BATCHES):
+        raise AssertionError(f"Taylor launches {launches}, expected "
+                             f"{scaled(TAYLOR_LAUNCHES, TAYLOR_BATCHES)}")
+    return launches
+
+
+def check_mask_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scale="full",
+                   slices=CLI_SLICES, workdir=None, prune_num=TAYLOR_PRUNE):
+    """The train CLI's mask learning on phase 12's phantom volumes, one
+    epoch each: `--mask loupe --learn_mask --reg Rec`, and `--mask taylor
+    --prune_every CLI_PRUNE_EVERY --prune_num prune_num --reg None`. Each
+    run's final checkpoint reloads with the live model's `pruned` and
+    net_mask weight; LOUPE keeps kept_lines() lines and its logits moved,
+    the schedule prunes prune_num lines at each round and logs the keep
+    density; on a card the launch counts: steps x (the step's + Taylor's
+    where it runs + PBSPLINE_LAUNCHES) + val batches x EVAL_LAUNCHES.
+    Returns the launch counts of both runs."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine import train
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    is_cuda = torch.device(device).type == "cuda"
+    train_vols, val_vols = cli_volumes(rng, slices, shape)
+    train_set, val_set = cli_slices(train_vols), cli_slices(val_vols)
+    steps, val_batches = len(train_set) // batch, len(val_set) // batch
+    root = workdir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                   "mask_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    runs = (("loupe", "Rec", ["--learn_mask"], REC_LAUNCHES),
+            ("taylor", "None", ["--prune_every", str(CLI_PRUNE_EVERY), "--prune_num",
+                                str(prune_num)], add_counts(NONE_LAUNCHES, TAYLOR_LAUNCHES)))
+    out = []
+    try:
+        for mask, reg, extra, step_launches in runs:
+            logdir = os.path.join(root, mask)
+            args = train.build_parser().parse_args(
+                cli_argv(logdir, reg, "T1", shape, batch, net_scale, device, mask) + extra)
+            for d in (logdir, os.path.join(logdir, "ckpt"), os.path.join(logdir, "res")):
+                os.makedirs(d, exist_ok=True)
+            net, iter_cnt, _ = train.open_model(args, train.build_cfg(args), device)
+            start = (net.net_mask.weight.detach().clone()
+                     if net.net_mask.weight is not None else None)
+            kernels.reset_launches()
+            rec = train.run(net, train_set, val_set, args, iter_cnt=iter_cnt)
+            got = dict(kernels.LAUNCHES)
+            saved = CSModel(ckpt=os.path.join(logdir, "ckpt", "ckpt_%010d.pt" % rec["iter_cnt"]),
+                            device=device)
+            faults = []
+            if not torch.equal(saved.pruned, net.pruned):
+                faults.append("the checkpoint's pruned is not the live model's")
+            if not torch.equal(saved.net_mask.weight, net.net_mask.weight):
+                faults.append("the checkpoint's weight is not the live model's")
+            rounds = steps // CLI_PRUNE_EVERY if mask == "taylor" else 0
+            want_pruned = rounds * prune_num if mask == "taylor" else shape - kept_lines(shape)
+            if int(net.pruned.sum()) != want_pruned:
+                faults.append(f"{int(net.pruned.sum())} lines pruned, expected {want_pruned}")
+            if [i for i, _ in rec["prunes"]] != [CLI_PRUNE_EVERY * (r + 1) for r in range(rounds)]:
+                faults.append(f"prune rounds {rec['prunes']}")
+            if start is not None and torch.equal(start, net.net_mask.weight.detach()):
+                faults.append("the logits did not move")
+            # val/loss_gan_sim is the fresh net_G's, which neither run trains
+            # (phase 12: its eval output overflows f32 at full width)
+            if not all(np.isfinite(v) for t, _, v in rec["scalars"] if t != "val/loss_gan_sim"):
+                faults.append("a non-finite logged scalar")
+            want = add_counts(scaled(add_counts(step_launches, PBSPLINE_LAUNCHES), steps),
+                              scaled(EVAL_LAUNCHES, val_batches))
+            if is_cuda and got != want:
+                faults.append(f"launches {got}, expected {want}")
+            log(f"train CLI --mask {mask} {' '.join(extra)} --reg {reg} on {net.device}: "
+                f"{steps} steps of {batch}, {int((~net.pruned).sum())} of {shape} lines kept, "
+                f"prunes (iteration, keep density) {rec['prunes']}, val PSNR "
+                f"{rec['epochs'][0]['val']['metric_PSNR']:.4f} dB; its checkpoint's pruned "
+                f"and weight reload as the live model's; launches {got}")
+            if faults:
+                raise AssertionError(f"train CLI --mask {mask}: {'; '.join(faults)}")
+            out.append(got)
+            del net, saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return add_counts(*out)
+
+
+def check_masks(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scale="full",
+                slices=CLI_SLICES, workdir=None, prune_num=TAYLOR_PRUNE):
+    """Phase 13: LOUPE's learned mask in the Rec, None and Mixed steps
+    (`check_loupe`), one learned Rec step at batch 2 against float64 with
+    its planted fault (`check_train_vs_cpu`), Taylor saliency and pruning
+    (`check_taylor`), and the train CLI's `--learn_mask` and prune
+    schedule (`check_mask_cli`). Returns the launch counts of the steps,
+    the Taylor steps and the CLI runs."""
+    import torch
+
+    t_phase = time.perf_counter()
+    is_cuda = torch.device(device).type == "cuda"
+    launches = [check_loupe(rng, device, shape, batch)]
+    check_train_vs_cpu(rng, device, shape, learn_mask=True)
+    launches.append(check_taylor(rng, device, shape, batch, prune_num))
+    launches.append(check_mask_cli(rng, device, shape, batch, net_scale, slices, workdir,
+                                   prune_num))
+    log(f"mask phase on {device}: {time.perf_counter() - t_phase:.1f} s"
+        + (f", peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+           "since the LOUPE steps began" if is_cuda else ""))
+    return add_counts(*launches)
 
 
 def mi_controls(full, warped):
@@ -2881,6 +3311,23 @@ def train_cli_phases():
     return 0
 
 
+def mask_phases():
+    """Phase 13 alone: build the grid sample and SSIM kernels (the steps'),
+    then `check_masks`. 0 when it passes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels(["grid_sample.cu", "ssim.cu"])
+    check_masks(np.random.default_rng(0))
+    return 0
+
+
 def main():
     import torch
 
@@ -2918,13 +3365,16 @@ def main():
     main_paths.append(check_eval(rng))  # draws after every earlier phase
     cli = check_train_cli(rng)  # draws after every earlier phase
     main_paths.append(cli)
+    masks = check_masks(rng)  # draws after every earlier phase
+    main_paths.append(masks)
     for e in entries:
-        # serving, the Rec and Mixed train steps, eval and the train CLI's
-        # Proposed stage are the main paths (d_img runs on the Mixed ones,
-        # and on its own); the loss kernels run on the registration-loss
-        # library's entry points, the conv on its own entry point's ladder
+        # serving, the Rec and Mixed train steps, eval, the train CLI's
+        # Proposed stage and mask learning are the main paths (d_img runs
+        # on the Mixed ones, and on its own); the loss kernels run on the
+        # registration-loss library's entry points, the conv on its own
+        # entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":
-            paths = [autograd, mixed, cli]
+            paths = [autograd, mixed, cli, masks]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
         elif e["name"] in ("conv3x3", "conv3x3_bf16"):

@@ -2,7 +2,8 @@
 """Where the PyTorch port's serving, training or eval time goes on one NVIDIA GPU.
 
     python3 scripts/torch_port_profile.py [--batch 8] [--requests 3]
-    python3 scripts/torch_port_profile.py --train [--reg Mixed] [--batch 4] [--requests 3]
+    python3 scripts/torch_port_profile.py --train [--reg Mixed] [--learn_mask] [--batch 4] [--requests 3]
+    python3 scripts/torch_port_profile.py --taylor [--batch 4] [--requests 3]
     python3 scripts/torch_port_profile.py --eval [--batch 16] [--requests 3]
 
 Builds the CSModel at the default widths (320 x 320, 1 coil, 4x
@@ -11,7 +12,9 @@ warms it up, then profiles `--requests` reconstruct calls (or, with
 --train, train steps of regime --reg: set_input + update; Rec by default,
 or Mixed with the reference's recipe and, as chip_smoke.py's Mixed phase,
 PBSpline augmentation of 352 planes cropped to 320, on the card, inside
-the profiled step; or, with --eval, volumes of --batch slices through the
+the profiled step; with --learn_mask, Rec learning a LOUPE mask at
+sparsity 0.25, as chip_smoke.py's phase 13; or, with --taylor,
+`taylor_step`s of a Taylor mask; or, with --eval, volumes of --batch slices through the
 eval CLI's loop, `engine/eval.py::evaluate`, with net_G's weights from
 chip_smoke.py too) with torch.profiler and
 prints: slices/s, the device time by the category of the aten op that
@@ -56,13 +59,19 @@ def main():
                     help="profile train steps instead of serving")
     ap.add_argument("--reg", default="Rec", choices=("Rec", "Mixed"),
                     help="the train steps' regime (with --train)")
+    ap.add_argument("--learn_mask", action="store_true",
+                    help="with --train --reg Rec: learn a LOUPE mask")
     ap.add_argument("--eval", action="store_true",
                     help="profile eval volumes (CSModel.test) instead of serving")
+    ap.add_argument("--taylor", action="store_true",
+                    help="profile Taylor saliency steps (CSModel.taylor_step)")
     args = ap.parse_args()
-    if args.train and args.eval:
-        raise SystemExit("--train and --eval exclude each other")
+    if args.train + args.eval + args.taylor > 1:
+        raise SystemExit("--train, --eval and --taylor exclude each other")
+    if args.learn_mask and not (args.train and args.reg == "Rec"):
+        raise SystemExit("--learn_mask needs --train --reg Rec")
     if args.batch is None:
-        args.batch = 4 if args.train else 16 if args.eval else 8
+        args.batch = 4 if args.train or args.taylor else 16 if args.eval else 8
 
     import torch
     from torch.autograd import DeviceType
@@ -79,6 +88,10 @@ def main():
     gan = args.train and args.reg == "Mixed"
     if gan:
         cfg = chip_smoke.mixed_cfg()
+    elif args.learn_mask:
+        cfg = chip_smoke.mask_cfg()
+    elif args.taylor:
+        cfg = chip_smoke.mask_cfg(reg="None", mask="taylor", learn_mask=False)
     else:
         cfg = chip_smoke.train_cfg() if args.train else chip_smoke.serving_cfg()
     model = CSModel(cfg=cfg, device="cuda", seed=0)
@@ -98,6 +111,9 @@ def main():
                                                        cfg.shape)
             model.set_input(full, aux)
             model.update()
+        elif args.taylor:
+            model.set_input(full, aux)
+            model.taylor_step()
         else:
             model.reconstruct(full, aux)
 
@@ -141,8 +157,9 @@ def main():
             by_cat[op_category(avg.key[len("aten::"):])] += avg.self_device_time_total
     by_cat["(no aten op: ctypes kernels)"] = total - sum(by_cat.values())
     n_slices = args.batch * args.requests
-    what = (f"{args.reg} train steps" if args.train
-            else "eval volumes" if args.eval else "requests")
+    what = (f"{args.reg} train steps" + (" (LOUPE learned)" if args.learn_mask else "")
+            if args.train else "eval volumes" if args.eval
+            else "Taylor steps" if args.taylor else "requests")
     print(f"{args.requests} {what} x {args.batch} slices in {wall * 1e3:.1f} ms "
           f"host wall under the profiler: {n_slices / wall:.2f} slices/s")
     print(f"device kernel time {total / 1e3:.2f} ms "

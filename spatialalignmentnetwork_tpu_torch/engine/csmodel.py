@@ -4,7 +4,8 @@ package's `engine/csmodel.py`).
 Serving reconstructs a slice from its own undersampled k-space, guided by
 a reference modality aligned to it:
 
-    _prepare     fft2 -> apply the fixed `pruned` mask -> ifft2
+    _prepare     fft2 -> apply the hard `pruned` mask (or, learning a
+                 LOUPE mask, multiply by its soft sample) -> ifft2
     net_T        SpatialTransformer(|aux|, |sampled|) -> f32 grid
     warp         bilinear grid sample of |aux| (the CUDA kernel on a card)
     net_R        VarNet(k_sampled, mask, warped, num_low) -> rss image
@@ -36,9 +37,18 @@ and on the real image. With cfg.grad_accum > 1 the batch runs as that many
 micro-batches (each TR/RT half split alike in the GAN regimes), their
 gradients averaged into one step per net; BatchNorm statistics thread
 through the micro-batches, spectral-norm vectors restart from the step's
-own at each one. The bf16 policy, LOUPE mask learning and per-cascade
-rematerialization wait for later slices; `build` and `update` refuse a
-cfg that asks for one of them.
+own at each one. The bf16 policy and per-cascade rematerialization wait
+for later slices; `build` refuses a cfg that asks for the first.
+
+Mask learning: with cfg.mask "loupe" and cfg.learn_mask, `_prepare`
+multiplies the k-space by LOUPE's soft sample of net_mask's logits, so
+that the None, Rec and Mixed steps also step net_mask (in None through
+net_R alone: the grid is detached); the data-consistency mask stays the
+step's hard `pruned`, which a hard sample of the updated logits replaces
+after the step. `taylor_step` accumulates each line's Taylor saliency
+(the squared gradient of loss_sim * weight_sim with respect to a per-line
+k-space multiplier, nets in eval mode) and `prune` prunes by it, or by
+|weight| for the other kinds (`masks.magnitude_prune`).
 
 Evaluation (`eval` -> `set_input` -> `test` -> `get_vis`) runs the JAX
 package's test step on a whole volume: net_T, the warp, forwardG's
@@ -54,8 +64,8 @@ checkpoints go both ways in the JAX package's directory layout (`load`,
 `save`), with weights, statistics and Adam moments carried by
 `engine/from_jax.py`; `load` also reads the reference's own checkpoints
 (raw state dicts, under the torch names the port's modules keep).
-net_mask's entries other than `pruned` (the mask is fixed here) are kept
-as loaded and written back by `save`.
+net_mask is `pruned` and, where the mask has one, its `weight` (LOUPE's
+logits, a Taylor mask's saliency) with its own Adam state.
 
 The model lives on `device`, "cuda" unless the caller asks for "cpu"; with
 no card and no explicit "cpu" it raises rather than run on the CPU.
@@ -90,6 +100,11 @@ GAN_REGIMES = ("Mixed", "GAN-Only")
 # reference checkpoint's net_mask weight for these alone, torch_compat.py:
 # 287-291)
 WEIGHTED_MASKS = ("mask", "loupe")
+# regimes whose step also steps net_mask when a LOUPE mask learns (the ones
+# that run net_R, whose loss reaches the logits)
+MASK_REGIMES = ("None", "Rec", "Mixed")
+# the kinds `prune` prunes by |weight| (a fixed mask by an all-ones one)
+MAGNITUDE_MASKS = ("mask", "standard", "equispaced", "lowpass")
 
 
 def resolve_device(device) -> torch.device:
@@ -188,24 +203,42 @@ class CSModel:
         )
         for name in NETS:
             getattr(self, name).to(self.device).eval()
-        # net_mask's checkpoint entries other than `pruned`, and its
-        # opt_state keys, kept as loaded so that `save` writes them back
-        self._mask_entries = {}
-        self._mask_opt = {}
-        self.opt = {
-            name: torch.optim.Adam(
-                getattr(self, name).parameters(), lr=cfg.lr,
-                betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
-            )
-            for name in NETS
-        }
+        self.opt = {name: self._adam(getattr(self, name)) for name in NETS}
+        # the mask: its kind's slopes and fresh `weight` from the seed, as
+        # the JAX package's build; `pruned` a checkpoint's where given
+        self.mask = masks_lib.make_mask(
+            cfg.mask, cfg.shape, cfg.get("sparsity"), seed=self.seed
+        )
+        self.net_mask = masks_lib.MaskNet()
+        if self.mask.weight is not None:
+            self._set_mask_weight(self.mask.weight)
         if pruned is None:
-            pruned = masks_lib.make_mask(
-                cfg.mask, cfg.shape, cfg.get("sparsity"), seed=self.seed
-            ).pruned
+            pruned = self.mask.pruned
         self.pruned = torch.as_tensor(
             np.asarray(pruned).astype(bool), device=self.device
         )
+        self._taylor_values = []
+        # the draws of mask learning (the JAX package keys them from
+        # PRNGKey(seed + 1)) and of `prune`'s jitter
+        self._mask_gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        self._prune_rng = np.random.default_rng(self.seed)
+
+    def _adam(self, module):
+        return torch.optim.Adam(
+            module.parameters(), lr=self.cfg.lr,
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+        )
+
+    def _set_mask_weight(self, weight):
+        """Set net_mask's `weight`; the first time, create the parameter
+        and its Adam (a fresh build of a weighted kind, or the slot a
+        checkpoint or `prune` gives a Taylor mask, as the JAX package
+        does)."""
+        created = self.net_mask.weight is None
+        self.net_mask.set_weight(weight)
+        if created:
+            self.net_mask.to(self.device)
+            self.opt["net_mask"] = self._adam(self.net_mask)
 
     @property
     def num_low_frequencies(self) -> int:
@@ -237,6 +270,8 @@ class CSModel:
 
     # ------------------------------------------------------------ checkpoint
     def _entries(self, name) -> list:
+        if name == "net_mask":
+            return from_jax.mask_entries(self.net_mask)
         if name == "net_T":
             return from_jax.stn_entries(self.net_T)
         if name == "net_R":
@@ -265,8 +300,9 @@ class CSModel:
         flat, ...}, each a JAX entry or a reference state dict; a net whose
         weights load restarts its Adam, unless `opt_state` (the JAX
         package's `save(with_opt=True)` entry) restores the moments.
-        net_mask's entries other than `pruned`, and its `opt_state` keys,
-        are kept as they are for `save`."""
+        net_mask's entry is `pruned` and an optional `params/weight`, which
+        creates the weight where the mask kind has none (a Taylor mask's
+        saliency), as the JAX package's `load` does."""
         for name in entries:
             if name not in NET_NAMES and name != "opt_state":
                 raise KeyError(f"unknown checkpoint entry {name!r}")
@@ -279,23 +315,31 @@ class CSModel:
                         getattr(self, name), entries[name], self._entries(name)
                     )
                 self.opt[name].state.clear()
-        mask_entry = entries.get("net_mask", {})
-        if is_reference_entry(mask_entry):
-            # the JAX package's mask_to_flax (torch_compat.py:223-230):
-            # `pruned`, and `weight` where the mask kind has one
-            weight = mask_entry.get("weight")
-            mask_entry = {k: v for k, v in mask_entry.items() if k == "pruned"}
-            if weight is not None and self.cfg.get("mask") in WEIGHTED_MASKS:
-                mask_entry["params/weight"] = np.asarray(weight)
-        self._mask_entries = {k: v for k, v in mask_entry.items() if k != "pruned"}
-        if "pruned" in mask_entry:
-            self.pruned = torch.as_tensor(
-                np.asarray(mask_entry["pruned"]).astype(bool), device=self.device
-            )
+        if "net_mask" in entries:
+            self._load_mask(entries["net_mask"])
         if "opt_state" in entries:
             self._load_opt(entries["opt_state"])
-            self._mask_opt = {k: v for k, v in entries["opt_state"].items()
-                              if k.startswith("net_mask/")}
+
+    def _load_mask(self, entry: dict):
+        """net_mask from a JAX entry or a reference state dict."""
+        if is_reference_entry(entry):
+            # the JAX package's mask_to_flax (torch_compat.py:223-230):
+            # `pruned`, and `weight` where the mask kind has one
+            weight = entry.get("weight")
+            entry = {k: v for k, v in entry.items() if k == "pruned"}
+            if weight is not None and self.cfg.get("mask") in WEIGHTED_MASKS:
+                entry["params/weight"] = np.asarray(weight)
+        unknown = set(entry) - {"pruned", "params/weight"}
+        if unknown:
+            raise KeyError(f"net_mask entry has arrays the mask lacks: {sorted(unknown)}")
+        if "params/weight" in entry:
+            self._set_mask_weight(entry["params/weight"])
+        if "net_mask" in self.opt:
+            self.opt["net_mask"].state.clear()
+        if "pruned" in entry:
+            self.pruned = torch.as_tensor(
+                np.asarray(entry["pruned"]).astype(bool), device=self.device
+            )
 
     def _load_state_dict(self, name, sd: dict):
         """Load a reference state dict into net `name` by its torch names
@@ -317,12 +361,11 @@ class CSModel:
     def checkpoint(self, objects=None, with_opt=False) -> dict:
         """The checkpoint entries {'net_X': flat dict, ..., 'config'}: the
         four nets (params, and the BatchNorm statistics and spectral-norm
-        vectors as `stats`) and net_mask (`pruned` and its other entries as
-        loaded), or of the nets only those that `objects` names; with
-        `with_opt`, every net's Adam moments as the JAX package lays out
-        its `opt_state` (optax's mu, nu, count for torch's exp_avg,
-        exp_avg_sq, step), and net_mask's as loaded, or as the JAX package
-        initialises them (count 0, zero moments)."""
+        vectors as `stats`) and net_mask (`pruned`, and `params/weight`
+        where the mask has one), or of the nets only those that `objects`
+        names; with `with_opt`, every net's Adam moments as the JAX package
+        lays out its `opt_state` (optax's mu, nu, count for torch's
+        exp_avg, exp_avg_sq, step), zero where a net has not stepped."""
         names = NET_NAMES if objects is None else objects
         unknown = [name for name in names if name not in NET_NAMES]
         if unknown:
@@ -335,31 +378,24 @@ class CSModel:
                            if not k.endswith("num_batches_tracked")}
                 ckpt[name] = from_jax.to_jax_entries(tensors, self._entries(name))
         if "net_mask" in names:
-            ckpt["net_mask"] = {**self._mask_entries, "pruned": self.pruned.cpu().numpy()}
+            ckpt["net_mask"] = {
+                **from_jax.to_jax_entries(dict(self.net_mask.named_parameters()),
+                                          self._entries("net_mask")),
+                "pruned": self.pruned.cpu().numpy(),
+            }
         if with_opt:
-            ckpt["opt_state"] = {**self._fresh_mask_opt(), **self._mask_opt,
-                                 **self._opt_entries()}
+            ckpt["opt_state"] = self._opt_entries()
         ckpt["config"] = self.cfg
         return ckpt
-
-    def _fresh_mask_opt(self) -> dict:
-        """net_mask's `opt_state` as a fresh JAX build holds it: count 0 and
-        zero moments for each of its params."""
-        out = {"net_mask/0/count": np.array(0, np.int32)}
-        for key, a in self._mask_entries.items():
-            if key.startswith("params/"):
-                for slot in ("mu", "nu"):
-                    out[f"net_mask/0/{slot}/{key[len('params/'):]}"] = np.zeros_like(
-                        np.asarray(a, np.float32))
-        return out
 
     def _param_entries(self, name) -> list:
         return [e for e in self._entries(name) if e[1].startswith("params/")]
 
     def _opt_entries(self) -> dict:
         """Adam's state as `opt_state` keys 'net_X/0/count',
-        'net_X/0/mu/<param path>', 'net_X/0/nu/<param path>'."""
-        out = {}
+        'net_X/0/mu/<param path>', 'net_X/0/nu/<param path>' (net_mask
+        without a weight: its count alone, 0, as a JAX build holds it)."""
+        out = {"net_mask/0/count": np.array(0, np.int32)}
         for name, opt in self.opt.items():
             params = dict(getattr(self, name).named_parameters())
             for key, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
@@ -407,10 +443,15 @@ class CSModel:
         )
         return img_full, img_aux
 
-    def _prepare(self, img_full, img_aux, pruned):
-        """set_input's undersampling with the fixed `pruned` vector."""
+    def _prepare(self, img_full, img_aux, pruned, soft=None):
+        """set_input's undersampling: by the hard `pruned` vector, or by
+        `soft` [N, W], LOUPE's soft sample, through which the gradient
+        reaches the mask's logits."""
         img_k_full = fft2(img_full)
-        img_k_sampled = masks_lib.apply_mask(img_k_full, pruned)
+        if soft is None:
+            img_k_sampled = masks_lib.apply_mask(img_k_full, pruned)
+        else:
+            img_k_sampled = img_k_full * soft[:, None, None, :]
         img_sampled = ifft2(img_k_sampled)
         return {
             "img_full": img_full,
@@ -519,10 +560,10 @@ class CSModel:
 
     def _step_grads(self, env, regime, params):
         """One (micro-)batch's gradients {net: [grad a param]} and losses.
-        The G-phase differentiates the regime's nets alone (net_D's weights
-        get nothing from it, as in the JAX step); the D-phase, in the GAN
-        regimes, net_D alone."""
-        names = GRAD_NETS[regime]
+        The G-phase differentiates the nets of `params` but net_D (net_D's
+        weights get nothing from it, as in the JAX step); the D-phase, in
+        the GAN regimes, net_D alone."""
+        names = [name for name in params if name != "net_D"]
         total, losses, aligned = self._regime_loss(env, regime)
         flat = [p for name in names for p in params[name]]
         grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
@@ -567,12 +608,6 @@ class CSModel:
             raise RuntimeError("update() needs a batch (call set_input())")
         if regime not in GRAD_NETS:
             raise ValueError(f"unknown regime {regime!r}")
-        # the JAX package's condition (its csmodel.py:592)
-        if self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False)):
-            raise NotImplementedError(
-                "learn_mask with a LOUPE mask: mask learning is not ported yet "
-                "(ROADMAP queue 1 item 6)"
-            )
         n = self._batch[0].shape[0]
         if regime in GAN_REGIMES and n // accum < 2:
             # forwardG halves the batch: batch 1 would push an empty half
@@ -593,18 +628,49 @@ class CSModel:
                     f"GAN-regime micro-batches must be even for the forwardG "
                     f"crossover: batch {n} / accum {accum} = {n // accum}")
 
-    def update(self):
+    def _mask_draws(self, n, draws):
+        """The thresholds of a learned-mask step, on the model's device:
+        `draws` (soft [n, W], hard [1, W]) where the caller gives them,
+        else drawn from the model's generator."""
+        w = self.cfg.shape
+        if draws is None:
+            return (torch.rand((n, w), generator=self._mask_gen, device=self.device),
+                    torch.rand((1, w), generator=self._mask_gen, device=self.device))
+        soft, hard = (torch.as_tensor(d, device=self.device) for d in draws)
+        if soft.shape != (n, w) or hard.shape != (1, w):
+            raise ValueError(f"mask draws of shapes {tuple(soft.shape)} and "
+                             f"{tuple(hard.shape)}, expected {(n, w)} and {(1, w)}")
+        return soft, hard
+
+    def _loupe_sample(self, batch, training, thresh):
+        return masks_lib.loupe_sample(
+            self.net_mask.weight, self.cfg.sparsity, self.mask.pmask_slope,
+            self.mask.sample_slope, batch=batch, training=training, thresh=thresh)
+
+    def update(self, draws=None):
         """One train step of regime cfg.reg on the batch of `set_input`:
         the regime's nets take one Adam step on the G-phase's gradients
         and, in the GAN regimes, net_D one on the D-phase's, averaged over
         cfg.grad_accum micro-batches; BatchNorm statistics and spectral-norm
-        vectors advance as they run."""
+        vectors advance as they run. Learning a LOUPE mask, the batch is
+        undersampled by its soft sample against the thresholds draws[0]
+        ([N, W]), net_mask steps with the regime's nets (None, Rec,
+        Mixed), and then `pruned` is the hard sample of the updated logits
+        against draws[1] ([1, W]); without `draws`, the thresholds come
+        from the model's generator (seeded by seed + 1)."""
         regime = self.cfg.reg
         accum = int(self.cfg.get("grad_accum", 1))
         self._check_step(regime, accum)
         gan = regime in GAN_REGIMES
-        names = GRAD_NETS[regime] + (("net_D",) if gan else ())
+        # the JAX package's condition (its csmodel.py:591)
+        learn = self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False))
+        names = GRAD_NETS[regime] + (("net_mask",) if learn and regime in MASK_REGIMES else ())
+        names += ("net_D",) if gan else ()
         params = {name: list(getattr(self, name).parameters()) for name in names}
+        if learn:
+            soft_thresh, hard_thresh = self._mask_draws(self._batch[0].shape[0], draws)
+        elif draws is not None:
+            raise ValueError("mask draws given, but the step learns no mask")
         self._nets_mode(train=True)
         sn_start = ([(m.weight_u.clone(), m.weight_v.clone()) for m in self._spectral_convs()]
                     if accum > 1 else None)
@@ -614,7 +680,8 @@ class CSModel:
                 for m, (u, v) in zip(self._spectral_convs(), sn_start):
                     m.weight_u.copy_(u)
                     m.weight_v.copy_(v)
-            grads, losses = self._step_grads(self._prepare(full, aux, self.pruned),
+            soft = self._loupe_sample(full.shape[0], True, soft_thresh)[0] if learn else None
+            grads, losses = self._step_grads(self._prepare(full, aux, self.pruned, soft),
                                              regime, params)
             step_losses.append({k: v.detach() for k, v in losses.items()})
             sums = grads if sums is None else {
@@ -623,8 +690,70 @@ class CSModel:
             for p, g in zip(params[name], sums[name]):
                 p.grad = g / accum if accum > 1 else g
             self.opt[name].step()
+        if learn:  # the next step's data-consistency mask
+            with torch.no_grad():
+                self.pruned = self._loupe_sample(1, False, hard_thresh)[1]
         self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
                      for k in step_losses[0]}
+
+    # ------------------------------------------------------------- pruning
+    def taylor_step(self):
+        """Accumulate the Taylor saliency of the batch of `set_input`: for
+        each k-space line, the squared gradient of loss_sim * weight_sim
+        with respect to a multiplier of that line (1 here), the nets in
+        eval mode (no BatchNorm statistic or spectral-norm vector moves).
+        The vectors stay on the device until `prune`."""
+        if self.cfg.get("mask") != "taylor":
+            raise ValueError(f"taylor_step needs a taylor mask, not {self.cfg.get('mask')!r}")
+        if self._batch is None:
+            raise RuntimeError("taylor_step() needs a batch (call set_input())")
+        full, aux = self._batch
+        self._nets_mode(train=False)
+        mask_vec = torch.ones(self.cfg.shape, dtype=full.real.dtype, device=self.device,
+                              requires_grad=True)
+        keep = (1.0 - self.pruned.to(full.real.dtype)) * mask_vec
+        img_k_sampled = fft2(full) * keep[None, None, None, :]
+        env = {"img_aux": aux, "img_k_sampled": img_k_sampled,
+               "img_sampled": ifft2(img_k_sampled)}
+        out = self._forward_TGR(env)
+        loss = ssimloss(rss(full), out["img_rec"]) * self.cfg.weight_sim
+        (grad,) = torch.autograd.grad(loss, mask_vec)
+        self._taylor_values.append((grad * grad).detach())
+
+    def prune(self, num, thres=1.0, random=0.0):
+        """Prune `num` more k-space lines by the mask kind's policy: the
+        smallest |weight| below `thres` for 'mask' and the fixed kinds
+        (these an all-ones weight unless a checkpoint gave one; jitter of
+        up to `random` from a generator seeded once by the seed); the
+        smallest mean Taylor saliency since the last prune for 'taylor'
+        (which also becomes net_mask's weight, as in the reference); none
+        for 'loupe', whose logits set its mask."""
+        kind = self.cfg.get("mask")
+        pruned = self.pruned.cpu().numpy()
+        if kind in MAGNITUDE_MASKS:
+            w = self.net_mask.weight
+            weight = (w.detach().cpu().numpy() if w is not None
+                      else np.ones(self.cfg.shape, np.float32))
+            new = masks_lib.magnitude_prune(weight, pruned, num, thres, random,
+                                            rng=self._prune_rng)
+        elif kind == "taylor":
+            values, self._taylor_values = self._taylor_values, []
+            if num == 0:
+                return
+            if num < 0 or not values:
+                raise ValueError(f"taylor prune of {num} lines over {len(values)} "
+                                 "saliency vectors (call taylor_step first)")
+            # the mean and the order in numpy, as the JAX package (ties too)
+            w = np.stack([v.cpu().numpy() for v in values], 0).mean(0)
+            w[pruned] = w.max()
+            new = pruned.copy()
+            new[np.argsort(w)[:num]] = True
+            self._set_mask_weight(w)
+        elif kind == "loupe":
+            return
+        else:
+            raise ValueError(f"mask kind {kind!r} does not prune")
+        self.pruned = torch.as_tensor(new, device=self.device)
 
     # ---------------------------------------------------------------- eval
     def _test_step(self, img_full, img_aux, valid=None) -> dict:
@@ -699,7 +828,8 @@ class CSModel:
         "scalars" {'loss_*' and 'metric_*': float} (one readback), "images"
         {'img_*': numpy array} (the real 4-D images of 1 or 3 channels of
         the last `test`), "histograms" {'weights': {'values': net_mask's
-        weight}} where a checkpoint carried one; None gives all three."""
+        weight}} where the mask has one (LOUPE's logits, a Taylor mask's
+        saliency); None gives all three."""
         if content not in (None, "scalars", "images", "histograms"):
             raise ValueError(f"unknown get_vis content {content!r}")
         vis = {}
@@ -716,7 +846,7 @@ class CSModel:
             }
         if content in (None, "histograms"):
             vis["histograms"] = {}
-            weight = self._mask_entries.get("params/weight")
+            weight = self.net_mask.weight
             if weight is not None:
-                vis["histograms"]["weights"] = {"values": np.asarray(weight)}
+                vis["histograms"]["weights"] = {"values": weight.detach().cpu().numpy()}
         return vis

@@ -137,6 +137,12 @@ def conv_entries(module: nn.Module) -> list:
     return entries
 
 
+def mask_entries(module: nn.Module) -> list:
+    """Entries of net_mask (`ops/masks.py::MaskNet`): its `weight`, where
+    the mask has one."""
+    return [] if module.weight is None else [("weight", "params/weight", None, "same")]
+
+
 def to_torch_layout(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":  # HWIO -> OIHW
         return np.transpose(a, (3, 2, 0, 1))

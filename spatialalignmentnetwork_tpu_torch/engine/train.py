@@ -17,19 +17,24 @@ datasets from CSV manifests (train slices cropped to 1.1x the crop, val
 slices to the crop), or native slice caches (`--native_cache`); then
 `run`, the epoch loop: each batch is copied to the card, augmented there
 (`--aux_aug`, draws from a generator on the card seeded by `--seed`) and
-center-cropped, then `set_input` and `update`; TensorBoard scalars and
-histograms every SCALARS_EVERY iterations, image grids and checkpoints at
-their cadences; validation through `CSModel.test` after each epoch, with
-`best.pt` and early stopping (`--intel_stop`); a final checkpoint.
+center-cropped, then `set_input` and `update`; with `--prune_every N`, a
+Taylor mask's `taylor_step` after every update and `prune(--prune_num)`
+every N iterations (a LOUPE mask learns through `--learn_mask` instead);
+TensorBoard scalars and histograms every SCALARS_EVERY iterations, image
+grids and checkpoints at their cadences; validation through
+`CSModel.test` after each epoch, with `best.pt` and early stopping
+(`--intel_stop`); a final checkpoint.
 
 `run` takes the model and any two datasets (`__len__`, `__getitem__`), so
 that data in memory can be trained on without h5py.
 
 Runs on the card unless `--device cpu` is asked for; with no card and no
 `--device cpu` it raises. Flags of modules not ported yet are refused,
-each naming its ROADMAP item: `--learn_mask`, `--prune_every` and
-`--prune_num` (queue 1 item 6), `--use_amp` (item 7), `--data_parallel`
-and `--dist_*` (item 8).
+each naming its ROADMAP item: `--use_amp` (queue 1 item 7),
+`--data_parallel` and `--dist_*` (item 8). Flags that cannot act raise
+ValueError naming the flag, as the JAX CLI's asserts: `--learn_mask`
+without `--mask loupe` or under `--reg GAN-Only`, `--prune_every` without
+`--prune_num` or with a LOUPE mask.
 """
 
 import argparse
@@ -83,10 +88,6 @@ def draw_augmentation(policy, gen, n, count, device):
 def refuse_unported(args):
     """Raise for a flag whose module is not ported yet, naming its item of
     ROADMAP queue 1, before anything is built."""
-    if args.learn_mask or args.prune_every or args.prune_num:
-        raise NotImplementedError(
-            "--learn_mask, --prune_every and --prune_num: mask learning and "
-            "pruning are not ported yet (ROADMAP queue 1 item 6)")
     if args.use_amp:
         raise NotImplementedError(
             "--use_amp: the bf16 policy is not ported yet (ROADMAP queue 1 item 7)")
@@ -95,6 +96,16 @@ def refuse_unported(args):
         raise NotImplementedError(
             "--data_parallel and --dist_*: data parallelism is not ported yet "
             "(ROADMAP queue 1 item 8)")
+
+
+def check_prune_schedule(prune_every, prune_num, mask):
+    """The JAX CLI's asserts on the prune schedule, as ValueErrors."""
+    if prune_every > 0:
+        if not prune_num > 0:
+            raise ValueError("--prune_every needs --prune_num > 0")
+        if mask == "loupe":
+            raise ValueError("--prune_every: LOUPE prunes through its probability "
+                             "mask (use --learn_mask), not the prune schedule")
 
 
 def build_cfg(args) -> Config:
@@ -112,6 +123,18 @@ def build_cfg(args) -> Config:
     cfg.use_amp = args.use_amp
     if args.grad_accum > 1:
         cfg.grad_accum = args.grad_accum
+    if args.learn_mask:
+        # the differentiable soft sample in the step, so that gradients reach
+        # the LOUPE logits (engine/csmodel.py)
+        if args.mask != "loupe":
+            raise ValueError("--learn_mask needs --mask loupe")
+        if args.reg == "GAN-Only":
+            # no recon loss reaches the logits under GAN-Only: the soft
+            # sample would redraw the k-space noise every step while the
+            # logits stay frozen
+            raise ValueError("--learn_mask is inert under --reg GAN-Only (no recon "
+                             "loss reaches the mask logits); use None, Rec or Mixed")
+        cfg.learn_mask = True
     if args.net_scale == "tiny":
         # reduced nets for smoke runs; kept in the checkpoint's config, so
         # that eval rebuilds the same scale
@@ -194,9 +217,12 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
     `iter_cnt`. Returns {"iter_cnt", "signal_end", "epochs": [{"epoch",
     "steps", "seconds" (the training part, host clock, loader and the
     card's work included), "val" (the mean val scalars or None),
-    "val_loss"}], "scalars": [(tag, iteration, value), ...]}: every scalar
-    the loop logs, written to `writer` where there is one."""
+    "val_loss"}], "scalars": [(tag, iteration, value), ...]: every scalar
+    the loop logs, written to `writer` where there is one, "prunes":
+    [(iteration, keep density), ...]}."""
     cfg = net.cfg
+    prune_every = args.prune_every
+    check_prune_schedule(prune_every, args.prune_num, cfg.get("mask"))
     device = net.device
     is_cuda = device.type == "cuda"
     seed = args.seed if args.seed is not None else int(time.time())
@@ -218,7 +244,7 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
     signal_end = False
     iter_best = iter_cnt
     loss_best = None
-    epochs = []
+    epochs, prunes = [], []
     ckpt_dir = os.path.join(args.logdir, "ckpt")
     time_start = time.time()
     for num_epoch in range(args.epoch):
@@ -245,6 +271,17 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
                 prof.start()
             net.set_input(*batch)
             net.update()
+            if prune_every > 0:
+                # the JAX CLI's schedule (the reference exposes prune but
+                # never schedules it): Taylor saliency every batch
+                if cfg.get("mask") == "taylor":
+                    net.taylor_step()
+                if iter_cnt % prune_every == 0:
+                    net.prune(args.prune_num)
+                    density = 1.0 - float(net.pruned.float().mean())
+                    prunes.append((iter_cnt, density))
+                    print(f"\npruned at iter {iter_cnt}: keep density {density:.4f}",
+                          flush=True)
             if prof is not None:
                 if is_cuda:
                     torch.cuda.synchronize(device)
@@ -316,13 +353,14 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
         net.save(final, with_opt=args.save_opt)
         print("saved final ckpt:", final)
     return {"iter_cnt": iter_cnt, "signal_end": signal_end, "epochs": epochs,
-            "scalars": history}
+            "scalars": history, "prunes": prunes}
 
 
 def main(args):
     refuse_unported(args)
     device = resolve_device(args.device)
     cfg = build_cfg(args)
+    check_prune_schedule(args.prune_every, args.prune_num, cfg.mask)
     print(args)
     for path in (args.logdir, os.path.join(args.logdir, "res"), os.path.join(args.logdir, "ckpt")):
         os.makedirs(path, exist_ok=True)
@@ -391,10 +429,10 @@ def build_parser():
     parser.add_argument("--mask", metavar="type", required=True, type=str)
     parser.add_argument("--sparsity", metavar="0-1", type=float, default=None)
     parser.add_argument("--learn_mask", action="store_true",
-                        help="LOUPE mask learning (not ported yet: refused)")
+                        help="train the LOUPE mask logits (needs --mask loupe)")
     parser.add_argument("--prune_every", type=int, default=0, metavar="N",
-                        help="prune the mask every N iters (not ported yet: "
-                             "refused unless 0)")
+                        help="prune the mask every N iters (taylor/magnitude "
+                             "masks; 0 = never)")
     parser.add_argument("--prune_num", type=int, default=0, metavar="K",
                         help="lines to prune per prune_every round")
     parser.add_argument("--train", metavar="/path/to/training_data", required=True, type=str)

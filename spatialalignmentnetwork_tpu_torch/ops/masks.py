@@ -13,7 +13,16 @@ as [None, None, None, :] over [N, C, H, W] k-space:
 
 Generation runs once on the host with `np.random.default_rng(seed)`, the
 same generator and call order as the JAX package, so one seed gives the
-same `pruned` in both packages.
+same `pruned` in both packages (a fresh LOUPE build: the same logits; its
+first hard sample is drawn here by torch, see `make_mask`).
+
+LOUPE (learned probabilistic undersampling): `weight` holds one logit a
+line; `loupe_pmask` maps them to keep probabilities whose mean is the
+sparsity, and `loupe_sample` draws a soft (differentiable) or hard mask
+from them against uniform thresholds that the caller passes or draws from
+an explicit `torch.Generator`, never the global one. `MaskNet` is
+net_mask, the module that holds a mask's `weight` as a parameter.
+`magnitude_prune` is the numpy pruning policy of the learnable masks.
 """
 
 import dataclasses
@@ -22,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass
@@ -29,8 +39,10 @@ class MaskState:
     """State of a k-space mask.
 
     pruned: bool (W,) — True => line zeroed.
-    weight: optional learnable parameter vector (the plain `mask` kind).
+    weight: optional parameter vector: all ones for the plain `mask`
+            kind, LOUPE's logits for `loupe` (learned with cfg.learn_mask).
     kind:   registry name.
+    pmask_slope, sample_slope: LOUPE's sigmoid slopes.
     """
 
     kind: str
@@ -38,6 +50,8 @@ class MaskState:
     sparsity: Optional[float]
     pruned: np.ndarray
     weight: Optional[np.ndarray] = None
+    pmask_slope: float = 5.0
+    sample_slope: float = 12.0
 
 
 def center_len_for(sparsity: float, shape: int) -> int:
@@ -110,6 +124,112 @@ def lowpass_mask(sparsity: float, shape: int, rng=None) -> np.ndarray:
     return pruned
 
 
+def rescale_prob(x: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """Rescale probabilities so that their mean is `sparsity` (LOUPE).
+
+    Both branches of a `torch.where` are evaluated and both backwards run:
+    where the sigmoid saturates (xbar == 1 in f32, every logit above about
+    3.4 at slope 5) the branch not taken would divide by 1 - xbar = 0, and
+    its zero gradient times that infinity is NaN. Each branch's
+    denominator is therefore 1 where that branch is not taken (the JAX
+    package's guard)."""
+    xbar = torch.mean(x)
+    up = xbar > sparsity
+    safe_up = torch.where(up, xbar, 1.0)
+    safe_dn = torch.where(up, 1.0, 1.0 - xbar)
+    return torch.where(
+        up,
+        x * sparsity / safe_up,
+        1 - (1 - x) * (1 - sparsity) / safe_dn,
+    )
+
+
+def loupe_init_weight(shape: int, pmask_slope: float, rng: np.random.Generator) -> np.ndarray:
+    """LOUPE logit init: uniform in [eps, 1-eps] pushed through logit/slope."""
+    eps = 0.01
+    x = rng.random(shape) * (1 - eps * 2) + eps
+    return (-np.log(1.0 / x - 1.0) / pmask_slope).astype(np.float32)
+
+
+def loupe_pmask(weight: torch.Tensor, sparsity: float, pmask_slope: float) -> torch.Tensor:
+    """Keep probabilities a line, their mean `sparsity`."""
+    return rescale_prob(torch.sigmoid(weight * pmask_slope), sparsity)
+
+
+def loupe_sample(
+    weight: torch.Tensor,
+    sparsity: float,
+    pmask_slope: float,
+    sample_slope: float,
+    batch: int,
+    training: bool,
+    thresh: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Draw a soft or hard LOUPE mask against uniform thresholds [batch, W]:
+    `thresh` when given, else drawn from `generator` (one of the two is
+    required). Returns (mask [batch, W], pruned [W] bool of the first
+    sample). The kept lines are those whose score pmask - thresh reaches
+    the k-th largest, k = int(sparsity W + 0.5), ties included (a sort, as
+    the JAX package; a top-k would drop ties). Training: the soft mask
+    sigmoid(score * sample_slope), differentiable in `weight`; else the
+    hard 0/1 mask of the kept lines."""
+    shape = weight.shape[0]
+    pmask = loupe_pmask(weight, sparsity, pmask_slope)
+    k = int(sparsity * shape + 0.5)
+    if k < 1:
+        # the k-th largest with k = 0 would keep every line
+        raise ValueError(
+            f"loupe mask with sparsity {sparsity} at width {shape} keeps "
+            "0 lines; increase sparsity or width"
+        )
+    if thresh is None:
+        if generator is None:
+            raise ValueError("loupe_sample needs `thresh` or a `generator`")
+        thresh = torch.rand((batch, shape), generator=generator,
+                            device=weight.device, dtype=pmask.dtype)
+    score = pmask[None, :] - thresh.to(pmask.dtype)
+    with torch.no_grad():
+        kth = torch.sort(score, dim=-1, descending=True).values[:, k - 1:k]
+        not_pruned = score >= kth
+    pruned = torch.logical_not(not_pruned[0])
+    if training:
+        mask = torch.sigmoid(score * sample_slope)
+    else:
+        mask = not_pruned.to(pmask.dtype)
+    return mask, pruned
+
+
+def magnitude_prune(
+    weight: np.ndarray,
+    pruned: np.ndarray,
+    num: int,
+    thres: float = 1.0,
+    random: float = 0.0,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """Magnitude pruning of a learnable mask (the reference's masks.py:
+    17-38): prune at most `num` lines of smallest |w| below `thres`
+    (lines already pruned, and those at or above `thres`, excluded); with
+    `random` > 0 the order is jittered by uniform noise in [0, random)
+    from `rng`."""
+    if thres < 0 or random < 0 or num < 0:
+        raise ValueError(f"magnitude_prune: thres {thres}, random {random} and "
+                         f"num {num} must be >= 0")
+    pruned = pruned.copy()
+    if num == 0:
+        return pruned
+    w = np.abs(np.asarray(weight, dtype=np.float64)).copy()
+    big = max(random, w.max()) + thres
+    w[pruned] = big
+    w[w >= thres] = big
+    rand = (rng.random(w.shape) if rng is not None else np.zeros_like(w)) * random
+    ind = np.argsort(w - rand)[:num]
+    ind = ind[w[ind] < thres]
+    pruned[ind] = True
+    return pruned
+
+
 def make_mask(
     kind: str,
     shape: int,
@@ -119,9 +239,16 @@ def make_mask(
     """Build a MaskState by registry name.
 
     kinds: 'standard', 'equispaced', 'lowpass' (fixed, need sparsity);
-           'mask', 'taylor' (start unpruned). A fresh 'loupe' build draws
-           its first sample from JAX's generator and is not ported yet;
-           serving takes `pruned` from the checkpoint instead.
+           'mask', 'taylor' (learnable/saliency, start unpruned);
+           'loupe' (learnable probabilistic, needs sparsity).
+
+    A fresh 'loupe' build has the JAX package's logits bit for bit (the
+    same `rng.random` draws). Its first `pruned`, a hard sample as the
+    reference's first forward sets it, is drawn against thresholds of a
+    torch generator seeded by the same `rng.integers(0, 2**31)` that seeds
+    the JAX package's threefry key, so the two packages' first samples
+    differ; a checkpoint carries `pruned`, so a loaded model serves the
+    same mask in both.
     """
     rng = np.random.default_rng(seed)
     if kind == "standard":
@@ -139,11 +266,43 @@ def make_mask(
     if kind == "taylor":
         return MaskState(kind, shape, sparsity, np.zeros(shape, dtype=bool))
     if kind == "loupe":
-        raise NotImplementedError(
-            "a fresh LOUPE mask is not ported yet; load its `pruned` from "
-            "a checkpoint"
+        pmask_slope, sample_slope = 5.0, 12.0
+        weight = loupe_init_weight(shape, pmask_slope, rng)
+        gen = torch.Generator().manual_seed(int(rng.integers(0, 2**31)))
+        _, pruned = loupe_sample(
+            torch.from_numpy(weight), sparsity, pmask_slope, sample_slope,
+            batch=1, training=False, generator=gen,
+        )
+        return MaskState(
+            kind, shape, sparsity, pruned.numpy(),
+            weight=weight, pmask_slope=pmask_slope, sample_slope=sample_slope,
         )
     raise ValueError(f"unknown mask kind: {kind!r}")
+
+
+MASK_KINDS = ("mask", "taylor", "standard", "lowpass", "equispaced", "loupe")
+
+
+class MaskNet(nn.Module):
+    """net_mask: a mask's `weight` (the reference's name) as a parameter,
+    for the kinds that have one, else no parameter at all. `pruned` lives
+    on `CSModel`, which owns the step that refreshes it."""
+
+    def __init__(self, weight=None):
+        super().__init__()
+        self.register_parameter("weight", None)
+        if weight is not None:
+            self.set_weight(weight)
+
+    def set_weight(self, weight):
+        """Create the `weight` parameter from `weight` (f32), or copy into
+        the existing one (an optimizer that holds it keeps holding it)."""
+        w = torch.as_tensor(np.asarray(weight, np.float32))
+        if self.weight is None:
+            self.weight = nn.Parameter(w.clone())
+        else:
+            with torch.no_grad():
+                self.weight.copy_(w)
 
 
 def apply_mask(kspace: torch.Tensor, pruned: torch.Tensor) -> torch.Tensor:

@@ -360,7 +360,7 @@ def test_reference_checkpoint_layouts_load_in_both(trained, layout, tmp_path):
     for name in NETS:
         for k, v in native_sd(native, name).items():
             assert torch.equal(getattr(tm, name).state_dict()[k], v), (name, k)
-    assert tm._mask_entries == {}  # a fixed mask's weight is dropped, as in JAX
+    assert tm.net_mask.weight is None  # a fixed mask's weight is dropped, as in JAX
     full, aux = _batch(15)
     want_rec = native.reconstruct(full, aux)
     assert torch.equal(tm.reconstruct(full, aux), want_rec)

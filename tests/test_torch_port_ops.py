@@ -93,15 +93,13 @@ def test_make_mask_same_pruned_for_same_seed(kind):
             )
 
 
-def test_apply_mask_matches_jax_and_loupe_build_refused():
+def test_apply_mask_matches_jax():
     rng = np.random.default_rng(1)
     k = _complex(rng, (2, 1, 16, 16))
     pruned = rng.random(16) > 0.5
     got = tmasks.apply_mask(torch.from_numpy(k), torch.from_numpy(pruned))
     want = jmasks.apply_mask(jnp.asarray(k), jnp.asarray(pruned))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
-    with pytest.raises(NotImplementedError):
-        tmasks.make_mask("loupe", 16, 0.25, seed=0)
 
 
 def _boundary_grid(n, ho, wo, h, w):

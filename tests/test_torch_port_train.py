@@ -24,8 +24,10 @@ so both start from the same weights, BatchNorm statistics and mask. Then:
     loads in the JAX CSModel with every optimizer key, and net_G / net_D
     go through the port's modules on load-then-save bit for bit.
   * `grad_accum=2` on rows whose micro-batches repeat the full batch takes
-    the full-batch step; an unknown regime, a GAN regime at batch 1 and
-    LOUPE mask learning (not ported yet) are refused, not silently run.
+    the full-batch step; an unknown regime and a GAN regime at batch 1 are
+    refused, not silently run; a LOUPE checkpoint without learn_mask
+    trains with its mask fixed (mask learning itself:
+    tests/test_torch_port_mask_learning.py).
   * `chip_smoke.py`'s train, autograd and GAN phases run on the CPU.
 
 Inputs come from numpy seeds.
@@ -311,10 +313,10 @@ def test_jax_checkpoint_with_opt_resumes_in_port(start, jax_opt, tmp_path):
 def test_port_save_with_opt_after_a_step_loads_in_jax(start, jax_opt, tmp_path):
     """JAX `save(with_opt=True)` -> port load -> one port step -> port
     `save(with_opt=True)`: the JAX CSModel loads it (its `load` asserts
-    that no optimizer key is missing). Every `opt_state` key is there:
-    net_mask's as carried, every net's the port's own moments (net_T's and
-    net_R's after its step, net_G's and net_D's as loaded); the JAX model
-    restores them exactly."""
+    that no optimizer key is missing). Every `opt_state` key is there, each
+    the port's own: net_T's and net_R's moments after its step, net_G's and
+    net_D's as loaded, net_mask's count (a fixed mask has no weight); the
+    JAX model restores them exactly."""
     from flax import serialization
 
     path, _ = jax_opt
@@ -326,10 +328,9 @@ def test_port_save_with_opt_after_a_step_loads_in_jax(start, jax_opt, tmp_path):
     want = jckpt_load(path)["opt_state"]
     got = jckpt_load(out)["opt_state"]
     ours = tm._opt_entries()
-    assert set(got) == set(want)
-    assert {k.split("/")[0] for k in set(want) - set(ours)} == {"net_mask"}
+    assert set(got) == set(want) == set(ours)
     for k in want:
-        np.testing.assert_array_equal(got[k], ours[k] if k in ours else want[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], ours[k], err_msg=k)
     assert int(ours["net_T/0/count"]) == 2  # the JAX step, then the port's
     jm = JaxCSModel(ckpt=out)
     restored = flatten_tree(serialization.to_state_dict(jm.state["opt"]))
@@ -411,19 +412,20 @@ def test_grad_accum_is_refused():
             torch.testing.assert_close(b, a, rtol=2e-4, atol=1e-6 * net_max)
 
 
-def test_learn_mask_with_a_loupe_mask_is_refused(start):
-    """cfg.mask == "loupe" and cfg.learn_mask (the JAX condition): the JAX
-    step trains the mask's logits; the port refuses rather than train a
-    fixed mask. A LOUPE checkpoint without learn_mask still trains."""
+def test_a_loupe_checkpoint_without_learn_mask_still_trains(start):
+    """A checkpoint of a fixed mask loaded with cfg.mask "loupe" and no
+    learn_mask: the step trains the nets with the checkpoint's `pruned`
+    fixed, and the fresh LOUPE logits stay where they were."""
     _, _, path = start
     loupe = {**_cfg("Rec").to_dict(), "mask": "loupe"}
-    tm = CSModel(ckpt=path, cfg=Config(**loupe, learn_mask=True), device="cpu")
-    tm.set_input(*_batch(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tm.update()
     tm = CSModel(ckpt=path, cfg=Config(**loupe, learn_mask=False), device="cpu")
+    pruned, logits = tm.pruned.clone(), tm.net_mask.weight.detach().clone()
+    before = [p.detach().clone() for p in tm.net_T.parameters()]
     tm.set_input(*_batch(0))
     tm.update()
+    assert torch.equal(tm.pruned, pruned)
+    assert torch.equal(tm.net_mask.weight.detach(), logits)
+    assert not all(torch.equal(a, p) for a, p in zip(before, tm.net_T.parameters()))
 
 
 def test_chip_smoke_train_and_autograd_phases_run_on_cpu():

@@ -401,7 +401,6 @@ def test_cadences_trace_and_native_cache(workspace, tmp_path, monkeypatch, write
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--learn_mask"], "item 6"), (["--prune_every", "10", "--prune_num", "2"], "item 6"),
     (["--use_amp"], "item 7"), (["--data_parallel"], "item 8"),
     (["--dist_coordinator", "localhost:1234"], "item 8")])
 def test_flags_of_unported_modules_are_refused(workspace, tmp_path, flag, item):
