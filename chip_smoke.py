@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (the Rec step, the
-reference's own Mixed protocol and mask learning) and eval paths, its
+reference's own Mixed protocol and mask learning) and eval paths, in f32
+and under the bf16 policy with rematerialization, its
 registration-loss library and its 3x3 conv on one NVIDIA GPU and check
 them.
 
@@ -144,7 +145,30 @@ failure:
      --reg Rec` and `--mask taylor --prune_every 2 --prune_num 8 --reg
      None`, one epoch each on phase 12's volumes, each final checkpoint
      reloading with the live `pruned` and weight. It draws after every
-     earlier phase.
+     earlier phase;
+ 14. the precision and memory policy at full width (phase 14 alone:
+     `python3 -c "import sys, chip_smoke;
+     sys.exit(chip_smoke.precision_phases())"`): serving under `use_amp`
+     (bf16) at batch 8 (slices/s, peak, slice 0 against the port's bf16
+     on the CPU, its relative L2 within the larger of SERVE_BF16_L2 and
+     BF16_OWN times the CPU's own bf16 distance from its f32); the bf16
+     Rec and Mixed (PBSpline 352 -> 320) steps at batch 4 (ms, peak,
+     launches) and one step of each at batch 2 against the CPU's bf16
+     step (the losses within BF16_LOSS_TOL); the f32
+     Rec step with net_R_remat off and on (step 0's gradients within
+     REMAT_GRAD_TOL of each net's max, both ms and peaks); one bf16 Mixed
+     step at batch 24 with `_remat_tg` on and off (net_T's forward and
+     net_G's two rematerialized: gradients within REMAT_GRAD_TOL, the
+     BatchNorm statistics and u, v within REMAT_STATS_TOL, the
+     checkpointed calls and replayed vectors counted); the bf16 Mixed
+     step at the JAX package's flagship batch 16 with net_R_remat off and
+     on (ms and peak; out of device memory fails the phase); one bf16
+     step each of None, GAN-Only at grad_accum 2 and the LOUPE learned
+     Rec step; one bf16 eval volume of 16 slices beside the f32 model's
+     (finite; the reconstructions' distance and PSNRs), launch counts
+     reset just before and read just after each. Forward hooks hold every
+     conv and norm of the nets to bf16 (f32 in the f32 runs) on the
+     untimed calls. It draws after every earlier phase.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -160,6 +184,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1569,10 +1594,11 @@ def augmented_batch(full, aux, gen, device, shape):
     return [center_crop(x, (shape, shape)) for x in out]
 
 
-def timed_steps(model, batches, prepare):
-    """WARMUP_STEPS + TIMED_STEPS of prepare(batch) -> set_input -> update;
-    returns (seconds of the timed steps, launch counts of all of them,
-    losses a step). CUDA events on a card, the host clock on the CPU."""
+def timed_steps(model, batches, prepare, warmup=WARMUP_STEPS):
+    """prepare(batch) -> set_input -> update over `batches`, the first
+    `warmup` untimed; returns (seconds of the timed steps, launch counts of
+    all of them, losses a step). CUDA events on a card, the host clock on
+    the CPU."""
     import torch
 
     from spatialalignmentnetwork_tpu_torch import kernels
@@ -1584,7 +1610,7 @@ def timed_steps(model, batches, prepare):
     losses = []
     kernels.reset_launches()
     for i, batch in enumerate(batches):
-        if i == WARMUP_STEPS:
+        if i == warmup:
             if is_cuda:
                 torch.cuda.synchronize()
                 start = torch.cuda.Event(enable_timing=True)
@@ -2740,6 +2766,506 @@ def check_registration(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
 
 
 # ------------------------------------------------------------- 3x3 conv
+# ------------------------------------------------------------- precision
+BIG_BATCH = 16  # the bf16 Mixed step at the JAX package's flagship train batch
+REMAT_TG_BATCH = 24  # `_remat_tg`'s net_T threshold (net_G's half batch: 12)
+NETS = ("net_T", "net_R", "net_G", "net_D")
+# serving's slice 0, card bf16 against CPU bf16: relative L2 within the
+# larger of SERVE_BF16_L2 and BF16_OWN times the CPU's own bf16 distance
+# from its f32 (at full width on random weights a bf16 reconstruction lies
+# 0.13-0.20 from f32, the JAX package's as the port's)
+BF16_OWN = 1.5
+SERVE_BF16_L2 = 5e-2
+BF16_LOSS_TOL = 5e-2  # a bf16 step's losses, |card - cpu| / max(|cpu|, 1e-2)
+REMAT_GRAD_TOL = 1e-5  # remat on vs off, of each net's max |grad|
+REMAT_STATS_TOL = 1e-6  # ... BatchNorm running statistics, of their max
+
+
+def precision_cfg(reg="Rec", shape=SHAPE, use_amp=True, remat=False, widths=None, **extra):
+    """The Rec (or, for the GAN regimes, the Mixed) recipe under the bf16
+    policy `use_amp` and net_R's per-cascade remat; `widths`, cfg entries
+    that narrow the nets (the CPU test's), else `build`'s defaults."""
+    cfg = train_cfg(shape) if reg in ("None", "Rec") else mixed_cfg(shape, reg=reg)
+    cfg.reg = reg
+    cfg.use_amp = use_amp
+    cfg.net_R_remat = remat
+    for k, v in {**(widths or {}), **extra}.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+@contextlib.contextmanager
+def net_dtypes(model):
+    """While the block runs, the output dtype of every conv, transposed
+    conv, BatchNorm, spectral-norm conv and instance norm of the model's
+    four nets that runs: a set of (net, dtype)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.models.gan import SpectralConv
+    from spatialalignmentnetwork_tpu_torch.models.layers import InstanceNorm
+
+    sites = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.BatchNorm2d, SpectralConv,
+             InstanceNorm)
+    seen = set()
+    hooks = [m.register_forward_hook(lambda m, i, o, name=name: seen.add((name, o.dtype)))
+             for name in NETS for m in getattr(model, name).modules() if isinstance(m, sites)]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_net_dtypes(seen, dtype, nets, what):
+    """Raise unless each of `nets` ran and every conv and norm that ran
+    gave `dtype` (bf16 under use_amp, f32 without), as `net_dtypes`
+    recorded them."""
+    wrong = sorted(f"{n}: {d}" for n, d in seen if d != dtype)
+    missing = sorted(set(nets) - {n for n, _ in seen})
+    if wrong or missing:
+        raise AssertionError(f"{what}: convs and norms not in {dtype}: {wrong}; nets that "
+                             f"did not run: {missing}")
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| of two tensors, in float64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def loss_error(got, want):
+    """The worst |got - want| / max(|want|, 1e-2) over two loss dicts."""
+    if set(got) != set(want):
+        raise AssertionError(f"losses {sorted(got)} vs {sorted(want)}")
+    return max(abs(got[k] - v) / max(abs(v), 1e-2) for k, v in want.items())
+
+
+def free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def peak_mib():
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def serve_bf16(rng, entries, device, shape, batch, widths=None):
+    """Serving in bf16 at `batch`: WARMUP + TIMED requests, slices/s and
+    the peak, the nets' convs and norms in bf16 (the warm-up requests);
+    slice 0 against the port's bf16 and f32 on the CPU. Returns the launch
+    counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    model = CSModel(cfg=precision_cfg("Rec", shape, widths=widths), device=device, seed=0)
+    model.load_entries(entries)
+    requests = [phantoms(rng, batch, shape) for _ in range(WARMUP_REQUESTS + TIMED_REQUESTS)]
+    is_cuda = model.device.type == "cuda"
+    if is_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with net_dtypes(model) as seen:
+        outs = [model.reconstruct(*r) for r in requests[:WARMUP_REQUESTS]]
+    check_net_dtypes(seen, torch.bfloat16, ("net_T", "net_R"), "bf16 serving")
+    if is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cuda_timer(is_cuda) as timer:
+        outs += [model.reconstruct(*r) for r in requests[WARMUP_REQUESTS:]]
+    secs = timer.secs if is_cuda else time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for out in outs:
+        if out.shape != (batch, 1, shape, shape) or not torch.isfinite(out).all():
+            raise AssertionError(f"bf16 serving: bad output {tuple(out.shape)}")
+    got = outs[0][0].cpu()
+    del model
+    free_card()
+    refs = {}
+    for amp in (True, False):
+        ref_model = CSModel(cfg=precision_cfg("Rec", shape, use_amp=amp, widths=widths),
+                            device="cpu", seed=0)
+        ref_model.load_entries(entries)
+        refs[amp] = ref_model.reconstruct(*(x[:1] for x in requests[0]))[0]
+    err, err32 = rel_l2(got, refs[True]), rel_l2(got, refs[False])
+    own = rel_l2(refs[True], refs[False])
+    bar = max(SERVE_BF16_L2, BF16_OWN * own)
+    log(f"bf16 serving on {device}: {len(requests)} requests of {batch} slices "
+        f"({WARMUP_REQUESTS} warm-up), {secs * 1e3 / TIMED_REQUESTS:.2f} ms per request, "
+        f"{TIMED_REQUESTS * batch / secs:.2f} slices/s; launches {launches}; peak "
+        f"{peak_mib() if is_cuda else 0:.1f} MiB; slice 0, relative L2: vs the CPU's bf16 "
+        f"{err:.4g} (bar {bar:.4g}), vs the CPU's f32 {err32:.4g}, the CPU's bf16 vs its "
+        f"f32 {own:.4g}")
+    MEASURED["bf16_serving_slices_s"] = TIMED_REQUESTS * batch / secs
+    if is_cuda and launches.get("grid_sample_fwd", 0) != len(requests):
+        raise AssertionError(f"bf16 serving launches {launches}")
+    if not err <= bar:
+        raise AssertionError("bf16 serving: the card's slice 0 is off the CPU's")
+    return launches
+
+
+@contextlib.contextmanager
+def cuda_timer(enabled=True):
+    """CUDA events around the block; `.secs` after it (0 when disabled)."""
+    import torch
+
+    timer = types.SimpleNamespace(secs=0.0)
+    if not enabled:
+        yield timer
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield timer
+    end.record()
+    end.synchronize()
+    timer.secs = start.elapsed_time(end) / 1e3
+
+
+def train_bf16(rng, entries, device, shape, batch, widths=None):
+    """The Rec and the Mixed (PBSpline 352 -> 320) steps in bf16 at
+    `batch`: WARMUP + TIMED steps each, ms, peak, finite losses; then one
+    step of each at batch 2 on the card and on the CPU, in bf16 from the
+    same weights and inputs: the losses, and every conv and norm of the
+    step's nets in bf16 on both. Returns the launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    counts = []
+    for reg, want, nets in (("Rec", REC_LAUNCHES, ("net_T", "net_R")),
+                            ("Mixed", add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), NETS)):
+        model = CSModel(cfg=precision_cfg(reg, shape, widths=widths), device=device, seed=0)
+        model.load_entries(entries)
+        if reg == "Rec":
+            batches = [phantoms(rng, batch, shape) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+            prepare = lambda b: b  # noqa: E731
+        else:
+            gen = torch.Generator(device=model.device).manual_seed(0)
+            batches = [phantoms(rng, batch, shape * 11 // 10)
+                       for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+            prepare = lambda b: augmented_batch(*b, gen, model.device, shape)  # noqa: E731
+        secs, launches, losses = timed_steps(model, batches, prepare)
+        is_cuda = model.device.type == "cuda"
+        MEASURED[f"bf16_{reg}_ms"] = secs * 1e3 / TIMED_STEPS
+        log(f"bf16 {reg} train on {device}: batch {batch}, {shape}x{shape}, "
+            f"{len(batches)} steps ({WARMUP_STEPS} warm-up), "
+            f"{secs * 1e3 / TIMED_STEPS:.2f} ms per step, {TIMED_STEPS * batch / secs:.2f} "
+            f"slices/s, peak {peak_mib() if is_cuda else 0:.1f} MiB; last losses "
+            f"{losses[-1]}; launches {launches}")
+        if is_cuda and launches != scaled(want, len(batches)):
+            raise AssertionError(f"bf16 {reg} launches {launches}")
+        counts.append(launches)
+        del model
+        free_card()
+        full, aux = phantoms(rng, 2, shape)
+        step, secs = {}, {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            model = CSModel(cfg=precision_cfg(reg, shape, widths=widths), device=dev, seed=0)
+            model.load_entries(entries)
+            model.set_input(full, aux)
+            with net_dtypes(model) as seen:
+                model.update()
+            check_net_dtypes(seen, torch.bfloat16, nets, f"bf16 {reg} step on {dev}")
+            step[dev] = model.get_vis("scalars")["scalars"]
+            secs[dev] = round(time.perf_counter() - t0, 1)
+            del model
+        free_card()
+        err = loss_error(step[device], step["cpu"])
+        log(f"one bf16 {reg} step, batch 2, {device} vs cpu: {step[device]} vs "
+            f"{step['cpu']}: worst |diff| / max(|cpu|, 1e-2) {err:.4g} (tol "
+            f"{BF16_LOSS_TOL}); seconds {secs}")
+        if not err <= BF16_LOSS_TOL:
+            raise AssertionError(f"bf16 {reg} step: the card's losses are off the CPU's")
+    return add_counts(*counts)
+
+
+def remat_f32(rng, entries, device, shape, batch, widths=None):
+    """The f32 Rec step with net_R_remat off and on, one model at a time
+    from the same weights and batches: step 0's gradients (within
+    REMAT_GRAD_TOL of each net's max; every conv and norm in f32); then
+    WARMUP + TIMED steps each, ms and peak. Returns the launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    first = phantoms(rng, batch, shape)
+    batches = [phantoms(rng, batch, shape) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    grads, counts, res = {}, [], {}
+    for remat in (False, True):
+        model = CSModel(cfg=precision_cfg("Rec", shape, use_amp=False, remat=remat,
+                                          widths=widths), device=device, seed=0)
+        model.load_entries(entries)
+        model.set_input(*first)
+        with net_dtypes(model) as seen:
+            model.update()
+        check_net_dtypes(seen, torch.float32, ("net_T", "net_R"), f"f32 Rec (remat {remat})")
+        grads[remat] = net_grads(model)
+        secs, launches, _ = timed_steps(model, batches, lambda b: b)
+        is_cuda = model.device.type == "cuda"
+        res[remat] = (secs * 1e3 / TIMED_STEPS, peak_mib() if is_cuda else 0.0)
+        MEASURED[f"f32_rec_remat_{remat}"] = res[remat]
+        counts.append(launches)
+        if is_cuda and launches != scaled(REC_LAUNCHES, len(batches)):
+            raise AssertionError(f"f32 Rec (remat {remat}) launches {launches}")
+        del model
+        free_card()
+    err = grad_error(grads[True], {n: {k: g.double() for k, g in leaves.items()}
+                                   for n, leaves in grads[False].items()})
+    log(f"f32 Rec train on {device}, batch {batch}: net_R_remat off {res[False][0]:.2f} ms "
+        f"a step, peak {res[False][1]:.1f} MiB; on {res[True][0]:.2f} ms, peak "
+        f"{res[True][1]:.1f} MiB; step 0 gradients, remat on vs off, worst leaf's max "
+        f"|diff| / net's max {err} (tol {REMAT_GRAD_TOL})")
+    if not all(e <= REMAT_GRAD_TOL for e, _ in err.values()):
+        raise AssertionError("net_R_remat changes the Rec step")
+    return add_counts(*counts)
+
+
+@contextlib.contextmanager
+def counting_remat(remat_tg=True):
+    """Count, while the block runs, the checkpointed calls
+    (`models/remat.py::checkpoint`) and the stateful values their
+    recomputations replay (`replay`); with `remat_tg` False, `_remat_tg`
+    is off (no net_T or net_G forward is rematerialized)."""
+    from spatialalignmentnetwork_tpu_torch.engine import csmodel
+    from spatialalignmentnetwork_tpu_torch.models import remat
+
+    counts = {"checkpoint": 0, "replay": 0}
+    saved = remat.checkpoint, remat.replay, csmodel._remat_tg
+
+    def checkpoint(fn, *args):
+        counts["checkpoint"] += 1
+        return saved[0](fn, *args)
+
+    def replay():
+        counts["replay"] += 1
+        return saved[1]()
+
+    remat.checkpoint, remat.replay = checkpoint, replay
+    if not remat_tg:
+        csmodel._remat_tg = lambda batch, threshold=24: False
+    try:
+        yield counts
+    finally:
+        remat.checkpoint, remat.replay, csmodel._remat_tg = saved
+
+
+def remat_tg_bf16(rng, entries, device, shape, batch=REMAT_TG_BATCH, widths=None):
+    """One bf16 Mixed step at `batch` (24), where `_remat_tg`
+    rematerializes net_T's forward and net_G's two (half batches of 12),
+    against the same step with it off, from the same weights and batch,
+    net_R_remat on in both, cuDNN deterministic: every net's gradients
+    within REMAT_GRAD_TOL of its max, every BatchNorm statistic and
+    spectral-norm vector (u, v) of the four nets within REMAT_STATS_TOL of
+    its max; and the counts of checkpointed calls (one a cascade of
+    net_R, 3 more with `_remat_tg`) and of replayed (u, v) (each of
+    net_G's spectral-norm convs in each of its 2 recomputed calls).
+    Returns the launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.models.gan import SpectralConv
+
+    full, aux = phantoms(rng, batch, shape)
+    out, launches = {}, []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for on in (False, True):
+            cfg = precision_cfg("Mixed", shape, remat=True, widths=widths)
+            model = CSModel(cfg=cfg, device=device, seed=0)
+            model.load_entries(entries)
+            model.set_input(full, aux)
+            kernels.reset_launches()
+            with counting_remat(remat_tg=on) as counts, net_dtypes(model) as seen:
+                model.update()
+            launches.append(dict(kernels.LAUNCHES))
+            check_net_dtypes(seen, torch.bfloat16, NETS, f"bf16 Mixed, _remat_tg {on}")
+            snconvs = sum(isinstance(m, SpectralConv) for m in model.net_G.modules())
+            want = {"checkpoint": len(model.net_R.cascades) + (3 if on else 0),
+                    "replay": 2 * snconvs if on else 0}
+            if counts != want:
+                raise AssertionError(f"_remat_tg {on}: {counts}, expected {want}")
+            buffers = {f"{n}.{k}": v.detach().double().cpu() for n in NETS
+                       for k, v in getattr(model, n).named_buffers()
+                       if not k.endswith("num_batches_tracked")}
+            out[on] = (net_grads(model), buffers, model.get_vis("scalars")["scalars"])
+            del model
+            free_card()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (grads, stats, losses), (grads_off, stats_off, losses_off) = out[True], out[False]
+    err = grad_error(grads, {n: {k: g.double() for k, g in leaves.items()}
+                             for n, leaves in grads_off.items()})
+    stat_err = max(float((stats[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                   for k, v in stats_off.items())
+    log(f"bf16 Mixed train on {device}, batch {batch}: _remat_tg on vs off (net_R_remat on), "
+        f"worst leaf's max |diff| / net's max {err} (tol {REMAT_GRAD_TOL}); BatchNorm "
+        f"statistics and u, v of {len(stats)} buffers: {stat_err:.3g} of their max (tol "
+        f"{REMAT_STATS_TOL}); losses {losses} vs {losses_off}; launches {launches}")
+    if not set(NETS) <= set(err) or not all(e <= REMAT_GRAD_TOL for e, _ in err.values()):
+        raise AssertionError("_remat_tg changes the Mixed step's gradients")
+    if not stat_err <= REMAT_STATS_TOL:
+        raise AssertionError("_remat_tg changes the Mixed step's statistics or u, v")
+    if device != "cpu" and launches != [MIXED_LAUNCHES] * 2:
+        raise AssertionError(f"bf16 Mixed batch {batch} launches {launches}")
+    return add_counts(*launches)
+
+
+def mixed_bf16_big(rng, entries, device, shape, batch=BIG_BATCH, widths=None):
+    """The bf16 Mixed step (phantoms at `shape`) at `batch`, the JAX
+    package's flagship train batch, with net_R_remat off and on: one
+    warm-up and two timed steps each, ms and peak. Returns the launch
+    counts."""
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    counts = []
+    for remat in (False, True):
+        model = CSModel(cfg=precision_cfg("Mixed", shape, remat=remat, widths=widths),
+                        device=device, seed=0)
+        model.load_entries(entries)
+        steps = [phantoms(rng, batch, shape) for _ in range(3)]
+        secs, launches, losses = timed_steps(model, steps, lambda b: b, warmup=1)
+        is_cuda = model.device.type == "cuda"
+        ms = secs * 1e3 / 2
+        MEASURED[f"bf16_mixed_b{batch}_remat_{remat}"] = (ms, peak_mib() if is_cuda else 0)
+        log(f"bf16 Mixed train on {device}: batch {batch}, net_R_remat {remat}, "
+            f"{ms:.2f} ms per step (2 timed after 1 warm-up), {2 * batch / secs:.2f} "
+            f"slices/s, peak {peak_mib() if is_cuda else 0:.1f} MiB; last losses "
+            f"{losses[-1]}; launches {launches}")
+        if is_cuda and launches != scaled(MIXED_LAUNCHES, 3):
+            raise AssertionError(f"bf16 Mixed batch {batch} launches {launches}")
+        counts.append(launches)
+        del model
+        free_card()
+    return add_counts(*counts)
+
+
+def entries_bf16(rng, entries, device, shape, batch, widths=None):
+    """One step each in bf16 of the None regime, GAN-Only at grad_accum 2,
+    and the LOUPE learned Rec step (sparsity MASK_SPARSITY): finite losses,
+    their launches, and every conv and norm of the nets the step runs in
+    bf16. Returns the launch counts."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    counts = []
+    for label, cfg, n, want, nets in (
+            ("None", precision_cfg("None", shape, widths=widths), batch, NONE_LAUNCHES,
+             ("net_R",)),
+            # micro-batches of at least 2 for forwardG's crossover
+            ("GAN-Only grad_accum 2",
+             precision_cfg("GAN-Only", shape, widths=widths, grad_accum=2), max(batch, 4),
+             scaled(GAN_ONLY_LAUNCHES, 2), ("net_T", "net_G", "net_D")),
+            ("LOUPE learned Rec",
+             precision_cfg("Rec", shape, widths=widths, mask="loupe", sparsity=MASK_SPARSITY,
+                           learn_mask=True), batch, REC_LAUNCHES, ("net_T", "net_R"))):
+        model = CSModel(cfg=cfg, device=device, seed=0)
+        model.load_entries(entries)
+        model.set_input(*phantoms(rng, n, shape))
+        kernels.reset_launches()
+        with net_dtypes(model) as seen:
+            model.update()
+        launches = dict(kernels.LAUNCHES)
+        check_net_dtypes(seen, torch.bfloat16, nets, f"bf16 {label} step")
+        losses = model.get_vis("scalars")["scalars"]
+        log(f"bf16 {label} step on {device}: batch {n}; losses {losses}; "
+            f"launches {launches}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"bf16 {label}: non-finite loss {losses}")
+        if model.device.type == "cuda" and launches != want:
+            raise AssertionError(f"bf16 {label} launches {launches}, expected {want}")
+        counts.append(launches)
+        del model
+        free_card()
+    return add_counts(*counts)
+
+
+def eval_bf16(rng, entries, device, shape, slices=EVAL_BUCKET, widths=None):
+    """One volume of `slices` through `engine/eval.py::evaluate` on a bf16
+    model (after a warm-up pass), beside the f32 model on the same volume:
+    finite scalars, the reconstructions' relative L2, both PSNRs, and the
+    nets' convs and norms in bf16 (f32) on the warm-up pass. Returns the
+    launch counts of the bf16 pass."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.engine.eval import evaluate
+
+    volume = eval_volume(rng, slices, shape)
+    out = {}
+    for amp in (True, False):
+        model = CSModel(cfg=precision_cfg("Rec", shape, use_amp=amp, widths=widths),
+                        device=device, seed=0)
+        model.load_entries(entries)
+        model.eval()
+        with net_dtypes(model) as seen:
+            evaluate(model, [volume], EVAL_BUCKET)
+        check_net_dtypes(seen, torch.bfloat16 if amp else torch.float32,
+                         ("net_T", "net_R"), f"eval (use_amp {amp})")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        stats = evaluate(model, [volume], EVAL_BUCKET)[0]
+        out[amp] = (stats, dict(kernels.LAUNCHES),
+                    torch.from_numpy(model.get_vis("images")["images"]["img_rec"]),
+                    time.perf_counter() - t0)
+        del model
+        free_card()
+    (stats, launches, rec, secs), (stats32, _, rec32, _) = out[True], out[False]
+    err = rel_l2(rec, rec32)
+    log(f"bf16 eval on {device}: one volume of {slices} slices, {secs * 1e3:.1f} ms (host "
+        f"clock), {stats}; f32 {stats32}; metric_PSNR bf16 - f32 "
+        f"{stats['metric_PSNR'] - stats32['metric_PSNR']:.4g} dB; reconstructions' "
+        f"relative L2 {err:.4g}; launches {launches}")
+    if rec.shape != (slices, 1, shape, shape) or not all(np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"bf16 eval: {tuple(rec.shape)}, scalars {stats}")
+    if device != "cpu" and launches != EVAL_LAUNCHES:
+        raise AssertionError(f"bf16 eval launches {launches}")
+    return launches
+
+
+def check_precision(rng, device="cuda", shape=SHAPE, serve_batch=BATCH, batch=TRAIN_BATCH,
+                    big=BIG_BATCH, remat_tg_batch=REMAT_TG_BATCH, widths=None):
+    """Phase 14, the precision and memory policy: bf16 serving, the bf16
+    Rec and Mixed steps, the f32 Rec step with net_R_remat off and on, the
+    bf16 Mixed step with `_remat_tg` on and off, the bf16 Mixed step at
+    the JAX package's flagship batch with remat off and on, the bf16
+    None, GAN-Only (grad_accum 2) and LOUPE steps, and one bf16 eval
+    volume. Returns the launch counts of its runs. (The CPU tests run it
+    at a small shape, narrow `widths` and small batches on the CPU, where
+    no kernel launches.)"""
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    t0 = time.perf_counter()
+    free_card()  # the cache earlier phases left
+    template = CSModel(cfg=precision_cfg("Mixed", shape, widths=widths), device="cpu", seed=0)
+    entries = random_entries(template, rng, gan=True)
+    del template
+    counts = [serve_bf16(rng, entries, device, shape, serve_batch, widths),
+              train_bf16(rng, entries, device, shape, batch, widths),
+              remat_f32(rng, entries, device, shape, batch, widths),
+              remat_tg_bf16(rng, entries, device, shape, remat_tg_batch, widths),
+              mixed_bf16_big(rng, entries, device, shape, big, widths),
+              entries_bf16(rng, entries, device, shape, batch, widths),
+              eval_bf16(rng, entries, device, shape, widths=widths)]
+    log(f"precision phase on {device}: {time.perf_counter() - t0:.1f} s")
+    return add_counts(*counts)
+
+
 def bf16_close(got, want, scale):
     """Whether a bf16 result is within one bf16 ulp (BF16_RTOL) of `want`,
     the float64 result rounded to bf16, beside the f32 bar CONV_TOL x
@@ -3328,6 +3854,23 @@ def mask_phases():
     return 0
 
 
+def precision_phases():
+    """Phase 14 alone: build the grid sample and SSIM kernels (the paths'),
+    then `check_precision`. 0 when it passes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels(["grid_sample.cu", "ssim.cu"])
+    check_precision(np.random.default_rng(0))
+    return 0
+
+
 def main():
     import torch
 
@@ -3367,14 +3910,16 @@ def main():
     main_paths.append(cli)
     masks = check_masks(rng)  # draws after every earlier phase
     main_paths.append(masks)
+    precision = check_precision(rng)  # draws after every earlier phase
+    main_paths.append(precision)
     for e in entries:
         # serving, the Rec and Mixed train steps, eval, the train CLI's
-        # Proposed stage and mask learning are the main paths (d_img runs
-        # on the Mixed ones, and on its own); the loss kernels run on the
-        # registration-loss library's entry points, the conv on its own
-        # entry point's ladder
+        # Proposed stage, mask learning and the precision phase are the
+        # main paths (d_img runs on the Mixed ones, and on its own); the
+        # loss kernels run on the registration-loss library's entry points,
+        # the conv on its own entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":
-            paths = [autograd, mixed, cli, masks]
+            paths = [autograd, mixed, cli, masks, precision]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
         elif e["name"] in ("conv3x3", "conv3x3_bf16"):

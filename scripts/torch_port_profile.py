@@ -3,6 +3,7 @@
 
     python3 scripts/torch_port_profile.py [--batch 8] [--requests 3]
     python3 scripts/torch_port_profile.py --train [--reg Mixed] [--learn_mask] [--batch 4] [--requests 3]
+    python3 scripts/torch_port_profile.py --train --reg Mixed --use_amp [--after_smoke]
     python3 scripts/torch_port_profile.py --taylor [--batch 4] [--requests 3]
     python3 scripts/torch_port_profile.py --eval [--batch 16] [--requests 3]
 
@@ -20,13 +21,19 @@ chip_smoke.py too) with torch.profiler and
 prints: slices/s, the device time by the category of the aten op that
 launched it, the top ops and kernels, and the device's idle share of the
 profiled window (one minus the union of kernel intervals over the
-window). Needs a card.
+window). --use_amp computes the nets in bf16 (the cfg's bf16 policy, as
+chip_smoke.py's phase 14). --after_smoke first runs chip_smoke.py's whole
+script (`chip_smoke.main`) in the same process, so that the profiled
+steps meet the state its phases leave (the caching allocator, threads,
+the Python heap), and prints the threads alive before profiling. Needs a
+card.
 """
 
 import argparse
 import collections
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -65,6 +72,10 @@ def main():
                     help="profile eval volumes (CSModel.test) instead of serving")
     ap.add_argument("--taylor", action="store_true",
                     help="profile Taylor saliency steps (CSModel.taylor_step)")
+    ap.add_argument("--use_amp", action="store_true",
+                    help="compute the nets in bf16 (cfg.use_amp)")
+    ap.add_argument("--after_smoke", action="store_true",
+                    help="run chip_smoke.py's whole script in this process first")
     args = ap.parse_args()
     if args.train + args.eval + args.taylor > 1:
         raise SystemExit("--train, --eval and --taylor exclude each other")
@@ -83,6 +94,13 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card available")
+    if args.after_smoke:
+        t0 = time.perf_counter()
+        if chip_smoke.main() != 0:
+            raise SystemExit("chip_smoke.py failed")
+        chip_smoke.free_card()
+        print(f"chip_smoke.py ran in {time.perf_counter() - t0:.1f} s; threads alive: "
+              f"{[t.name for t in threading.enumerate()]}", flush=True)
     print(f"card: {chip_smoke.nvidia_smi()}", flush=True)
     rng = np.random.default_rng(0)
     gan = args.train and args.reg == "Mixed"
@@ -94,6 +112,7 @@ def main():
         cfg = chip_smoke.mask_cfg(reg="None", mask="taylor", learn_mask=False)
     else:
         cfg = chip_smoke.train_cfg() if args.train else chip_smoke.serving_cfg()
+    cfg.use_amp = args.use_amp
     model = CSModel(cfg=cfg, device="cuda", seed=0)
     model.load_entries(chip_smoke.random_entries(model, rng, gan=args.eval))
     side = chip_smoke.AUG_SHAPE if gan else cfg.shape
@@ -158,6 +177,7 @@ def main():
     by_cat["(no aten op: ctypes kernels)"] = total - sum(by_cat.values())
     n_slices = args.batch * args.requests
     what = (f"{args.reg} train steps" + (" (LOUPE learned)" if args.learn_mask else "")
+            + (" in bf16" if args.use_amp else "")
             if args.train else "eval volumes" if args.eval
             else "Taylor steps" if args.taylor else "requests")
     print(f"{args.requests} {what} x {args.batch} slices in {wall * 1e3:.1f} ms "

@@ -37,8 +37,21 @@ and on the real image. With cfg.grad_accum > 1 the batch runs as that many
 micro-batches (each TR/RT half split alike in the GAN regimes), their
 gradients averaged into one step per net; BatchNorm statistics thread
 through the micro-batches, spectral-norm vectors restart from the step's
-own at each one. The bf16 policy and per-cascade rematerialization wait
-for later slices; `build` refuses a cfg that asks for the first.
+own at each one.
+
+Precision and memory (the JAX package's `cfg.use_amp` and remat): with
+cfg.use_amp every net computes in bf16 (`self.dtype`; the convs cast
+their inputs and weights, norms take f32 statistics), while parameters,
+Adam state, BatchNorm statistics, spectral-norm vectors and checkpoints
+stay f32; the k-space chain stays complex64, the STN's offset and grid
+f32, and where f32 meets bf16 the result is f32 as in JAX (forwardG's
+crossover concatenates f32 and bf16 images into f32 before the warp, so
+the grid sample's backward kernels see f32 alone). cfg.net_R_remat
+recomputes each cascade in the backward; it is off where the cfg does
+not set it (the JAX package's default is on, chosen for a 16 GB TPU).
+net_T's and net_G's training forwards are recomputed from a batch of
+24 and a half batch of 12 up (`_remat_tg`), as in JAX; remat changes no
+value (`models/remat.py` replays BatchNorm and spectral-norm updates).
 
 Mask learning: with cfg.mask "loupe" and cfg.learn_mask, `_prepare`
 multiplies the k-space by LOUPE's soft sample of net_mask's logits, so
@@ -74,7 +87,9 @@ no card and no explicit "cpu" it raises rather than run on the CPU.
 import numpy as np
 import torch
 
+from ..models import remat
 from ..models.gan import NetD, NetG, SpectralConv, loss_gan
+from ..models.layers import set_compute_dtype, stat_dtype
 from ..models.stn import SpatialTransformer, gradient_loss, gradient_loss_per_sample, warp
 from ..models.varnet import VarNet
 from ..ops import masks as masks_lib
@@ -105,6 +120,18 @@ WEIGHTED_MASKS = ("mask", "loupe")
 MASK_REGIMES = ("None", "Rec", "Mixed")
 # the kinds `prune` prunes by |weight| (a fixed mask by an all-ones one)
 MAGNITUDE_MASKS = ("mask", "standard", "equispaced", "lowpass")
+
+
+def _remat_tg(batch: int, threshold: int = 24) -> bool:
+    """Whether a net_T (or, with threshold 12, net_G, which runs on half
+    batches) training forward at `batch` is rematerialized: the JAX
+    package's `_remat_tg` on its default, auto (csmodel.py:94-113)."""
+    return batch >= threshold
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in float64 where it is (a float64 copy of the nets)."""
+    return x.to(stat_dtype(x.dtype))
 
 
 def resolve_device(device) -> torch.device:
@@ -159,8 +186,6 @@ class CSModel:
         (a checkpoint's), else generated from cfg.mask and the seed."""
         if cfg is None:
             raise ValueError("CSModel needs a cfg or a checkpoint")
-        if cfg.get("use_amp", False):
-            raise NotImplementedError("the bf16 policy (use_amp) is not ported yet")
         # the JAX package's guard (its csmodel.py:286-293), after the
         # reference's own assert: the recipe was only validated at 1e-4
         if cfg.get("lr") != 1e-4:
@@ -168,6 +193,7 @@ class CSModel:
                 f"lr={cfg.get('lr')}: the reference recipe pins lr to 1e-4"
             )
         self.cfg = cfg
+        self.dtype = torch.bfloat16 if cfg.get("use_amp", False) else torch.float32
         t_layers = tuple(cfg.get("net_T_layers", (32, 64, 64, 64, 64)))
         gen = torch.Generator().manual_seed(self.seed)
         with torch.random.fork_rng(devices=[]):
@@ -182,6 +208,9 @@ class CSModel:
                 chans=cfg.get("net_R_chans", 18),
                 pools=cfg.get("net_R_pools", 4),
                 use_ref=True,
+                # off unless the cfg sets it: the JAX package's default
+                # (on) was chosen to fit a 16 GB TPU
+                remat=bool(cfg.get("net_R_remat", False)),
             )
         # zero-init head => identity transform at init, as in training
         torch.nn.init.zeros_(self.net_T.head.weight)
@@ -202,7 +231,7 @@ class CSModel:
             generator=gan_gen,
         )
         for name in NETS:
-            getattr(self, name).to(self.device).eval()
+            set_compute_dtype(getattr(self, name), self.dtype).to(self.device).eval()
         self.opt = {name: self._adam(getattr(self, name)) for name in NETS}
         # the mask: its kind's slopes and fresh `weight` from the seed, as
         # the JAX package's build; `pruned` a checkpoint's where given
@@ -478,7 +507,7 @@ class CSModel:
         aux_abs = env["img_aux"].abs()
         sampled_abs = env["img_sampled"].abs()
         with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_T):
-            offset, grid = self.net_T(aux_abs, sampled_abs)
+            offset, grid = self._net_forward(self.net_T, 24, aux_abs, sampled_abs)
         out = {"offset": offset}
         if with_R:
             img_warped = warp(aux_abs, grid)
@@ -488,9 +517,11 @@ class CSModel:
         if with_G:
             aux_rss = env["img_aux_rss"]
             n1 = (aux_rss.shape[0] + 1) // 2
-            synth = self.net_G(aux_rss[n1:])
+            # under bf16, synth and G(R) are bf16 and each cat with f32 is f32
+            synth = self._net_forward(self.net_G, 12, aux_rss[n1:])
             warped_all = warp(torch.cat([aux_rss[:n1], synth]), grid)
-            out["img_aligned"] = torch.cat([self.net_G(warped_all[:n1]), warped_all[n1:]])
+            out["img_aligned"] = torch.cat(
+                [self._net_forward(self.net_G, 12, warped_all[:n1]), warped_all[n1:]])
             if images:
                 out["img_synth"] = torch.cat([warped_all[:n1], synth])
         if with_R:
@@ -499,6 +530,14 @@ class CSModel:
                 env["img_k_sampled"], mask, img_warped, self.num_low_frequencies
             )
         return out
+
+    @staticmethod
+    def _net_forward(net, threshold, *args):
+        """net(*args); a training forward at a batch of `threshold` or more
+        is rematerialized (`_remat_tg`)."""
+        if net.training and torch.is_grad_enabled() and _remat_tg(args[0].shape[0], threshold):
+            return remat.checkpoint(net, *args)
+        return net(*args)
 
     def recon_step(self, img_full, img_aux):
         """The eval-mode serving computation on device tensors."""
@@ -765,7 +804,9 @@ class CSModel:
         0, so that a NaN there cannot reach the sums."""
         env = self._prepare(img_full, img_aux, self.pruned)
         out = self._forward_TGR(env, with_G=True, with_R=True, images=True)
-        full, rec, warped = env["img_full_rss"], out["img_rec"], out["img_warped_rss"]
+        # the scalars in at least f32, as the JAX test step casts them
+        full, rec, warped = (at_least_f32(env["img_full_rss"]), at_least_f32(out["img_rec"]),
+                             at_least_f32(out["img_warped_rss"]))
         mask = (1.0 - self.pruned.to(torch.float32))[None, None, None, :]
         aux = {
             "img_full_rss": full,
@@ -795,7 +836,7 @@ class CSModel:
         aux["loss_sim"] = 1.0 - aux["metric_SSIM"]
         aux["loss_smooth"] = wmean(gradient_loss_per_sample(out["offset"]))
         aux["loss_gan_sim"] = wmean(
-            torch.mean(torch.abs(out["img_aligned"] - full), dim=(1, 2, 3)))
+            torch.mean(torch.abs(at_least_f32(out["img_aligned"]) - full), dim=(1, 2, 3)))
         aux["metric_MI"] = wmean(metrics.mi_per_slice(full, warped))
         aux["metric_MSE"] = wmean(mse_s)
         aux["metric_PSNR"] = 10.0 * torch.log10(1.0 / aux["metric_MSE"])

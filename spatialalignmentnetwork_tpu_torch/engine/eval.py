@@ -7,7 +7,8 @@ mirrors the reference's eval.py).
         [--device cuda]
 
 Loads a checkpoint in any layout `engine/checkpoint.py` reads (its config
-comes from inside it), runs `CSModel.test` on each volume of the CSV as
+comes from inside it, so a checkpoint trained with `use_amp` evaluates
+under the bf16 policy, as in the JAX CLI, which has no flag for it), runs `CSModel.test` on each volume of the CSV as
 one batch, padded to a multiple of `--bucket` slices (pad slices are left
 out of every scalar), optionally misaligns the reference modality by a
 scaled random deformation first (`--aux_aug factor`), and writes the

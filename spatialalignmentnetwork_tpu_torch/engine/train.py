@@ -29,9 +29,10 @@ grids and checkpoints at their cadences; validation through
 that data in memory can be trained on without h5py.
 
 Runs on the card unless `--device cpu` is asked for; with no card and no
-`--device cpu` it raises. Flags of modules not ported yet are refused,
-each naming its ROADMAP item: `--use_amp` (queue 1 item 7),
-`--data_parallel` and `--dist_*` (item 8). Flags that cannot act raise
+`--device cpu` it raises. `--use_amp` trains under the bf16 policy
+(`cfg.use_amp`, engine/csmodel.py). Flags of modules not ported yet are
+refused, naming their ROADMAP item: `--data_parallel` and `--dist_*`
+(queue 1 item 8). Flags that cannot act raise
 ValueError naming the flag, as the JAX CLI's asserts: `--learn_mask`
 without `--mask loupe` or under `--reg GAN-Only`, `--prune_every` without
 `--prune_num` or with a LOUPE mask.
@@ -88,9 +89,6 @@ def draw_augmentation(policy, gen, n, count, device):
 def refuse_unported(args):
     """Raise for a flag whose module is not ported yet, naming its item of
     ROADMAP queue 1, before anything is built."""
-    if args.use_amp:
-        raise NotImplementedError(
-            "--use_amp: the bf16 policy is not ported yet (ROADMAP queue 1 item 7)")
     if (args.data_parallel or args.dist_coordinator is not None
             or args.dist_num_processes is not None or args.dist_process_id is not None):
         raise NotImplementedError(
@@ -446,7 +444,7 @@ def build_parser():
                         help="compile the CSVs into native mmap slice caches "
                              "under DIR and assemble batches in C++ (OpenMP)")
     parser.add_argument("--use_amp", action="store_true",
-                        help="the bf16 policy (not ported yet: refused)")
+                        help="compute in bf16 (parameters and checkpoints stay f32)")
     parser.add_argument("--grad_accum", type=int, default=1, metavar="K",
                         help="accumulate gradients over K micro-batches "
                              "(one optimizer step per global batch)")

@@ -9,6 +9,8 @@ patch discriminator with a hinge loss (counterpart of the JAX package's
     iteration, stores u and v, then divides the weight by
     sigma = u . (W v); an eval-mode forward uses the stored vectors.
     Gradients flow through sigma into the weight, never into u and v.
+    With a compute dtype (bf16), sigma stays f32 and the normalised
+    weight, the input and the bias are cast to it.
   * SNConv: [BatchNorm ->] ReLU -> SpectralConv, xavier-normal init.
   * NetG: a recursively nested concat-skip U-Net, 2x2 stride-2 conv down,
     nearest-upsample up, BatchNorm.
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import remat
 from .layers import avg_pool2, upsample_nearest2
 from .unet_lib import BatchNorm2d
 
@@ -56,21 +59,30 @@ class SpectralConv(nn.Module):
                 buf.copy_(_l2_normalize(
                     torch.randn(buf.shape, generator=generator), eps))
 
+    compute_dtype = None
+
     def forward(self, x):
         w_mat = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
-        if self.training:
+        if self.training and remat.recomputing():
+            u, v = remat.replay()  # the forward's vectors, stored once
+        elif self.training:
             with torch.no_grad():
                 v = _l2_normalize(w_mat.t() @ self.weight_u, self.eps)
                 u = _l2_normalize(w_mat @ v, self.eps)
                 self.weight_u.copy_(u)
                 self.weight_v.copy_(v)
+            remat.record((u, v))
         else:
             # clones: autograd saves u and v, and a later train-mode
             # forward writes the buffers in place
             u, v = self.weight_u.clone(), self.weight_v.clone()
+        # the power iteration and sigma in the parameters' f32, then the
+        # normalised weight, the input and the bias in the compute dtype
         sigma = torch.dot(u, w_mat @ v)
-        return F.conv2d(x, self.weight_orig / sigma, self.bias,
-                        self.stride, self.padding)
+        w, bias = self.weight_orig / sigma, self.bias
+        if self.compute_dtype is not None:
+            x, w, bias = (t.to(self.compute_dtype) for t in (x, w, bias))
+        return F.conv2d(x, w, bias, self.stride, self.padding)
 
 
 class SNConv(nn.Module):

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.grid_sample import grid_sample, identity_grid
+from .layers import Conv2d
 from .unet_lib import LibUNet
 
 
@@ -28,7 +29,7 @@ class SpatialTransformer(nn.Module):
                  layers: Sequence[int] = (32, 64, 64, 64, 64)):
         super().__init__()
         self.unet = LibUNet(2 * channels, feat, layers)
-        self.head = nn.Conv2d(feat, 2, 3, padding=1)
+        self.head = Conv2d(feat, 2, 3, padding=1)
 
     def forward(self, moving: torch.Tensor, fixed: torch.Tensor):
         if moving.ndim != 4 or moving.is_complex():

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ConvBlock, TransposeConvBlock, avg_pool2, instance_norm
+from .layers import Conv2d, ConvBlock, TransposeConvBlock, avg_pool2, instance_norm, stat_dtype
 
 
 class Unet(nn.Module):
@@ -41,7 +41,7 @@ class Unet(nn.Module):
             ch //= 2
         self.up_transpose_conv.append(TransposeConvBlock(ch * 2, ch))
         self.up_conv.append(
-            nn.Sequential(ConvBlock(ch * 2, ch), nn.Conv2d(ch, out_chans, 1))
+            nn.Sequential(ConvBlock(ch * 2, ch), Conv2d(ch, out_chans, 1))
         )
 
     def forward(self, x):
@@ -67,15 +67,16 @@ def group_norm_2(x: torch.Tensor, eps: float = 1e-6):
     half of channels = real/imag parts) by mean and UNBIASED std, two-pass.
 
     A zero-variance group gets std 0 through the same guard as the JAX
-    package. Returns (normalized, mean [N,2,1,1], std [N,2,1,1]).
+    package. The statistics are taken in at least f32 and applied in x's
+    dtype. Returns (normalized, mean [N,2,1,1], std [N,2,1,1]).
     """
     b, c, h, w = x.shape
     g = x.reshape(b, 2, (c // 2) * h * w)
-    var, mean = torch.var_mean(g, dim=2, correction=1)
+    var, mean = torch.var_mean(g.to(stat_dtype(x.dtype)), dim=2, correction=1)
     nz = var > 0
     std = torch.where(nz, torch.sqrt(torch.where(nz, var, 1.0)), 0.0)
-    mean = mean.reshape(b, 2, 1, 1)
-    std = std.reshape(b, 2, 1, 1)
+    mean = mean.to(x.dtype).reshape(b, 2, 1, 1)
+    std = std.to(x.dtype).reshape(b, 2, 1, 1)
     xn = (x.reshape(b, 2, c // 2, h, w) - mean[:, :, None]) / (
         std[:, :, None] + eps
     )

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import avg_pool2, upsample_nearest2
+from . import remat
+from .layers import Conv2d, avg_pool2, stat_dtype, upsample_nearest2
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -27,18 +28,29 @@ class BatchNorm2d(nn.BatchNorm2d):
     running = 0.9 * running + 0.1 * batch, with the BIASED batch variance
     taken flax's way, mean(x^2) - mean(x)^2 (torch's own BatchNorm2d
     updates with the unbiased variance). Evaluation is torch's. The
-    `state_dict` names are torch's."""
+    `state_dict` names are torch's.
+
+    As flax's `BatchNorm(dtype=...)`: statistics and normalisation in at
+    least f32, the output in `compute_dtype` where one is set, else in
+    the input's dtype. The recomputation of a checkpointed forward
+    (`models/remat.py`) normalises alike but leaves the running
+    statistics alone: the forward updated them."""
+
+    compute_dtype = None
 
     def forward(self, x):
+        out_dtype = self.compute_dtype or x.dtype
+        x = x.to(stat_dtype(x.dtype))
         if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
+            return super().forward(x).to(out_dtype)
+        if not remat.recomputing():
+            with torch.no_grad():
+                mean = x.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+                            self.eps).to(out_dtype)
 
 
 class ConvBNAct(nn.Module):
@@ -46,7 +58,7 @@ class ConvBNAct(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
+        self.conv = Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
         self.bn = BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
@@ -100,7 +112,7 @@ class LibUNet(nn.Module):
         self.inner = Level(layers, 1)
         self.tail = ConvBNAct(layers[1] + l0, l0)
         self.tail_res = Res(l0, 1)
-        self.out = nn.Conv2d(l0, out_chans, 3, padding=1)
+        self.out = Conv2d(l0, out_chans, 3, padding=1)
 
     def forward(self, x):
         x = self.head_res(self.head(x))
@@ -111,7 +123,7 @@ class LibUNet(nn.Module):
 
 def _cna(in_ch: int, out_ch: int) -> nn.Module:
     """conv3x3 (with bias) -> LeakyReLU(0.01), norm-free."""
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.01))
+    return nn.Sequential(Conv2d(in_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.01))
 
 
 class _CnaRes(nn.Module):
@@ -170,7 +182,7 @@ class Decoder(nn.Module):
             ch = layers[level]
             self.levels.append(nn.Sequential(_cna(prev + bridges[level], ch), _CnaRes(ch)))
             prev = ch
-        self.out = nn.Conv2d(layers[0], out_chans, 3, padding=1)
+        self.out = Conv2d(layers[0], out_chans, 3, padding=1)
 
     def forward(self, bridges):
         x = None
@@ -188,9 +200,9 @@ class ResBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv_a = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.conv_b = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.shortcut = None if in_ch == out_ch else nn.Conv2d(in_ch, out_ch, 1)
+        self.conv_a = Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv_b = Conv2d(out_ch, out_ch, 3, padding=1)
+        self.shortcut = None if in_ch == out_ch else Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x):
         y = F.leaky_relu(x, 0.01)
@@ -207,12 +219,12 @@ class ResNet(nn.Module):
                  channels: Sequence[int] = (64, 64, 64, 64), res: bool = False):
         super().__init__()
         chs = list(channels)
-        self.stem = nn.Conv2d(in_chans, chs[0], 3, padding=1)
+        self.stem = Conv2d(in_chans, chs[0], 3, padding=1)
         self.blocks = nn.Sequential(*(ResBlock(a, b) for a, b in zip(chs[:-1], chs[1:])))
         self.res = res
-        self.long_shortcut = (nn.Conv2d(chs[0], chs[-1], 1)
+        self.long_shortcut = (Conv2d(chs[0], chs[-1], 1)
                               if res and chs[0] != chs[-1] else None)
-        self.out = nn.Conv2d(chs[-1], out_chans, 3, padding=1)
+        self.out = Conv2d(chs[-1], out_chans, 3, padding=1)
 
     def forward(self, x):
         x = self.stem(x)

@@ -6,13 +6,18 @@ with its own parameters (`cascades.{c}.model.unet.*`,
 `cascades.{c}.dc_weight`), where the JAX package scans one block over
 parameters stacked on a leading axis. The `use_ref` channel injects the
 warped reference image into every cascade's U-Net; its preprocessing
-(rss -> instance norm -> pad to 16) runs once, before the loop.
+(rss -> instance norm -> pad to 16) runs once, before the loop. With
+`remat` a training forward keeps only each cascade's input k-space and
+the backward recomputes the cascade (the JAX package's `nn.remat` around
+its scan body, `cfg.net_R_remat`). The k-space chain stays complex64
+under the bf16 policy; each NormUnet computes its U-Net in bf16.
 """
 
 import torch
 from torch import nn
 
 from ..ops.fft import fft2, ifft2, rss
+from . import remat as remat_lib
 from .layers import instance_norm
 from .unet import NormUnet, pad_to_16
 
@@ -68,9 +73,10 @@ class VarNet(nn.Module):
 
     def __init__(self, num_cascades: int = 12, sens_chans: int = 8,
                  sens_pools: int = 4, chans: int = 18, pools: int = 4,
-                 use_ref: bool = False):
+                 use_ref: bool = False, remat: bool = False):
         super().__init__()
         self.use_ref = use_ref
+        self.remat = remat
         self.sens_net = SensitivityModel(sens_chans, sens_pools)
         self.cascades = nn.ModuleList(
             VarNetBlock(NormUnet(chans, pools, use_ref=use_ref,
@@ -89,8 +95,8 @@ class VarNet(nn.Module):
         if mask.ndim == 1:
             mask = mask[None, None, None, :]
         kspace_pred = masked_kspace
+        remat = self.remat and torch.is_grad_enabled()
         for cascade in self.cascades:
-            kspace_pred = cascade(
-                kspace_pred, masked_kspace, mask, sens_maps, ref
-            )
+            args = (kspace_pred, masked_kspace, mask, sens_maps, ref)
+            kspace_pred = remat_lib.checkpoint(cascade, *args) if remat else cascade(*args)
         return rss(ifft2(kspace_pred))

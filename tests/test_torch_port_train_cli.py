@@ -37,6 +37,8 @@ augmentation), `--net_scale tiny`, batch 2.
     logged loss is finite; then the port's eval CLI on the last best.pt.
   * The CLI's cadences (monkeypatched to every iteration): scalars,
     histograms, image grids, periodic checkpoints, `--trace_at`.
+  * `--use_amp` (the bf16 policy) in both CLIs, their losses update by
+    update at the bf16 step bar.
   * Refusals: the flags of modules not ported yet, `--load_nets` without
     `--resume`, `--device cuda` without a card.
   * `chip_smoke.py`'s train-CLI phase on the CPU at a small shape.
@@ -401,13 +403,59 @@ def test_cadences_trace_and_native_cache(workspace, tmp_path, monkeypatch, write
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--use_amp"], "item 7"), (["--data_parallel"], "item 8"),
-    (["--dist_coordinator", "localhost:1234"], "item 8")])
+    (["--data_parallel"], "item 8"), (["--dist_coordinator", "localhost:1234"], "item 8")],
+    ids=["flag1-item 8", "flag2-item 8"])  # the ids they had beside --use_amp's
 def test_flags_of_unported_modules_are_refused(workspace, tmp_path, flag, item):
     _, csv = workspace
     with pytest.raises(NotImplementedError, match=item):
         ttrain.main(_port_args(tmp_path, csv, extra=flag))
     assert not os.path.exists(tmp_path / "ckpt")
+
+
+def test_use_amp_trains_as_the_jax_cli(workspace, tmp_path, monkeypatch):
+    """`--use_amp` (once refused with the flags above): both CLIs `--resume`
+    one JAX checkpoint of a bf16 model (its STN head non-zero), Rec, one
+    epoch of 4 updates on JAX's draws; each update's losses at the bf16
+    step bar of tests/test_torch_port_amp.py, the port's checkpoints f32
+    under a cfg with use_amp. The JAX package's s2d train layout, which
+    the port leaves out, is off (SAN_TPU_S2D_TRAIN=0)."""
+    from spatialalignmentnetwork_tpu.utils import cache
+    from test_torch_port_amp import LOSS_BAR, loss_dist
+
+    _, csv = workspace
+    monkeypatch.setenv("SAN_TPU_S2D_TRAIN", "0")
+    monkeypatch.setattr(cache, "enable_compilation_cache", lambda *a, **k: None)
+    _route_writers(monkeypatch)
+    jargs = jtrain.build_parser().parse_args(_argv(tmp_path / "jax", csv) + ["--use_amp"])
+    jm = JaxCSModel(cfg=jtrain.build_cfg(jargs), seed=0)
+    head = jm.state["params"]["net_T"]["Conv_0"]
+    rng = np.random.default_rng(5)
+    head["kernel"] = jax.numpy.asarray(
+        rng.standard_normal(head["kernel"].shape).astype(np.float32) * 0.05)
+    head["bias"] = jax.numpy.asarray(np.array([0.05, -0.03], np.float32))
+    start = str(tmp_path / "start.pt")
+    jm.save(start, with_opt=True)
+    jargs.resume = start
+    losses = {"jax": [], "port": []}
+    for who, cls in (("jax", JaxCSModel), ("port", CSModel)):
+        update = cls.update
+
+        def recorded(self, *a, _update=update, _who=who, **k):
+            _update(self, *a, **k)
+            losses[_who].append(self.get_vis("scalars")["scalars"])
+
+        monkeypatch.setattr(cls, "update", recorded)
+    jtrain.main(jargs)
+    _jax_draws(monkeypatch)
+    ttrain.main(_port_args(tmp_path / "port", csv, extra=["--use_amp", "--resume", start]))
+    assert len(losses["port"]) == len(losses["jax"]) == STEPS
+    for step, (got, want) in enumerate(zip(losses["port"], losses["jax"])):
+        want = {k: float(v) for k, v in want.items()}
+        assert loss_dist(got, want) <= LOSS_BAR, (step, got, want)
+    ckpt = ckpt_load(_final(str(tmp_path / "port")))
+    assert bool(ckpt["config"].use_amp)
+    assert {np.asarray(v).dtype for name in ("net_T", "net_R")
+            for v in ckpt[name].values()} == {np.dtype(np.float32)}
 
 
 def test_load_nets_needs_resume_and_the_card_needs_cuda(workspace, tmp_path, monkeypatch,
