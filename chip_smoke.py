@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training (the Rec step, the
 reference's own Mixed protocol and mask learning) and eval paths, in f32
-and under the bf16 policy with rematerialization, its
-registration-loss library and its 3x3 conv on one NVIDIA GPU and check
+and under the bf16 policy with rematerialization, alone and data-parallel,
+its registration-loss library and its 3x3 conv on one NVIDIA GPU and check
 them.
 
     python3 chip_smoke.py
@@ -168,7 +168,29 @@ failure:
      (finite; the reconstructions' distance and PSNRs), launch counts
      reset just before and read just after each. Forward hooks hold every
      conv and norm of the nets to bf16 (f32 in the f32 runs) on the
-     untimed calls. It draws after every earlier phase.
+     untimed calls. It draws after every earlier phase;
+ 15. data parallelism (phase 15 alone: `python3 -c "import sys,
+     chip_smoke; sys.exit(chip_smoke.parallel_phases())"`): (a) the train
+     CLI's `--data_parallel` spawn path (one process a card: a world of 1
+     over nccl on one card) for a Rec epoch at full width, global batch 4,
+     on phase 12's volumes, beside the CLI alone from the same --seed:
+     every leaf of the final checkpoints at the Adam bar, the largest
+     difference and both runs' ms a step printed; (b) a gloo world of 2
+     processes on the one card, each fed its rows of the same global batch
+     of 4: 3 Rec updates and 3 Mixed updates (PBSpline 352 -> 320, the
+     same draws), against the same steps of one process on the card from
+     the same weights, batches and draws: every net's parameters at the
+     Adam bar, BatchNorm statistics and u, v after the first update
+     within PAR_STEP1_RTOL (after the third printed beside a world of 1's
+     spread: the weights then differ by Adam's noise), both ranks the same
+     bits,
+     each rank's launch counts those of its steps (REC_LAUNCHES;
+     MIXED_LAUNCHES and PBSPLINE_LAUNCHES); (c) in that world, `evaluate`
+     of phase 11's volumes on the distributed model against it alone:
+     per-volume PSNR within EVAL_PSNR_ATOL (1e-3 dB), the other scalars at
+     the eval bars. The gloo world's ms are a correctness run's (gloo
+     stages every collective through the host), not a speed; the phase's
+     seconds and peak device memory. It draws after every earlier phase.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -2073,6 +2095,7 @@ def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_
     model.load_entries(entries)
     model.eval()
     volumes = [eval_volume(rng, n, shape) for n in slices]
+    MEASURED["eval_inputs"] = (entries, volumes, shape)  # phase 15's eval
     padded = [-(-n // bucket) * bucket for n in slices]
     is_cuda = model.device.type == "cuda"
     evaluate(model, volumes, bucket)  # warm-up: every shape the timed loop runs
@@ -3339,6 +3362,403 @@ def kernel_label(mangled):
 # by source, the kernels that must run on the tensor cores and the HMMA
 # each must show in its SASS: the f32 conv's and the MI forward's and
 # backward's 3xTF32 run m16n8k8 TF32, the bf16 conv m16n8k16 bf16
+# ------------------------------------------------- phase 15: data parallelism
+PAR_WORLD = 2  # the gloo world on one card: two processes on cuda:0
+PAR_STEPS = 3
+PAR_AUG_SEED = 15  # every process's PBSpline generator: the same draws
+# data-parallel against one process on the same card: the BatchNorm
+# running statistics after the first update, whose forward both take from
+# the same weights, differ by the sums' order alone: PAR_STEP1_RTOL (and
+# PAR_STEP1_ATOL for a mean near 0), u and v likewise. After PAR_STEPS
+# updates the weights differ within the Adam bar: Adam moves an element
+# whose gradient is near 0 by about +-lr a step on rounding noise alone,
+# differently in two runs that sum in another order, and the statistics of
+# every later norm move with the weights (on an H100 80GB HBM3 at 700 W,
+# phase 15 read up to 2.1e-3 on net_T's variances after 3 Rec steps and
+# 1.1e-2 on net_G's after 3 Mixed steps, their step-0 losses equal to
+# 1e-6). So the phase holds the parameters there, and each net's
+# statistics of each kind (running means, variances, u, v) after
+# PAR_STEPS to PAR_STATS_RTOL of the largest magnitude of that kind in
+# the net: on the H100 80GB HBM3 at 700 W the largest share read 7.42e-3
+# with the phase alone and 1.15e-2 in the whole script (net_G's means and
+# variances after 3 Mixed updates; net_T's 9.81e-4-4.25e-3, u and v
+# 1.63e-4-5.80e-4), 1.9e-4 on the CPU at tiny widths. No run of one
+# process is a witness of that noise's size: a world of 1 sums the
+# gradients as one process does, and read 12 to 28 times less than the
+# world of 2 on some kinds on the card; rows in another order, or inputs
+# off by rounding, read up to 1700 times less on the CPU
+PAR_STEP1_RTOL = 1e-4
+PAR_STEP1_ATOL = 1e-6
+PAR_STATS_RTOL = 3e-2
+
+
+def bn_followed_biases(model) -> set:
+    """(net, JAX key) of the conv biases that a BatchNorm follows, whose
+    exact gradient in train mode is 0: net_T's ConvBNAct convs, and every
+    SNConv of net_G but the last (each feeds a BatchNorm through a sum or
+    a concat)."""
+    from spatialalignmentnetwork_tpu_torch.models.gan import SNConv
+    from spatialalignmentnetwork_tpu_torch.models.unet_lib import ConvBNAct
+
+    names = {("net_T", f"{n}.conv.bias") for n, m in model.net_T.named_modules()
+             if isinstance(m, ConvBNAct)}
+    snconvs = [n for n, m in model.net_G.named_modules() if isinstance(m, SNConv)]
+    names |= {("net_G", f"{n}.conv.bias") for n in snconvs[:-1]}
+    return {(net, j) for net in ("net_T", "net_G") for t, j, _, _ in model._entries(net)
+            if (net, t) in names}
+
+
+def stats_failures(got, want, rtol, atol):
+    """The statistics (BatchNorm's, u and v) of entries `got` off `want` by
+    more than rtol of the value plus atol; returns (failures, the largest
+    relative difference as (value, net, key))."""
+    fails, worst = [], (0.0, None, None)
+    for name in want:
+        for key, w in want[name].items():
+            if not key.startswith("stats/"):
+                continue
+            w = np.asarray(w, np.float64)
+            diff = np.abs(np.asarray(got[name][key], np.float64) - w)
+            rel = float((diff / np.maximum(np.abs(w), 1e-30)).max())
+            if rel >= worst[0]:
+                worst = (rel, name, key)
+            if not (diff <= atol + rtol * np.abs(w)).all():
+                fails.append(f"{name} {key}: statistics {diff.max():.3g}")
+    return fails, worst
+
+
+def dp_failures(got, want, steps, lr, noise):
+    """The parameters of checkpoint entries `got` ({net: {key: array}}) off
+    `want` after `steps` Adam steps by more than the Adam bar (max |diff|
+    < 2.5 lr steps, mean < 0.7 lr steps; the biases of `noise` the max
+    alone). Returns (failures, the largest difference as (value, net,
+    key))."""
+    fails, worst = [], (0.0, None, None)
+    for name in NETS:
+        for key, w in want[name].items():
+            if not key.startswith("params/"):
+                continue
+            diff = np.abs(np.asarray(got[name][key], np.float64) - np.asarray(w, np.float64))
+            if diff.max() >= worst[0]:
+                worst = (float(diff.max()), name, key)
+            if diff.max() >= 2.5 * lr * steps:
+                fails.append(f"{name} {key}: max {diff.max():.3g}")
+            if (name, key) not in noise and diff.mean() >= 0.7 * lr * steps:
+                fails.append(f"{name} {key}: mean {diff.mean():.3g}")
+    return fails, worst
+
+
+def stats_spread(got, want) -> dict:
+    """The largest |got - want| over each net's running means, running
+    variances and spectral-norm u and v, as a share of the largest |want|
+    of that kind in that net: {(net, kind): share}."""
+    diffs, scales = {}, {}
+    for name in want:
+        for key, w in want[name].items():
+            if key.startswith("stats/"):
+                nk = name, key.rsplit("/", 1)[1]
+                w = np.asarray(w, np.float64)
+                diff = float(np.abs(np.asarray(got[name][key], np.float64) - w).max())
+                diffs[nk] = max(diffs.get(nk, 0.0), diff)
+                scales[nk] = max(scales.get(nk, 0.0), float(np.abs(w).max()))
+    return {nk: d / scales[nk] if scales[nk] else d for nk, d in diffs.items()}
+
+
+def digest(entries) -> dict:
+    """Each leaf's bytes, hashed: two ranks hold the same bits where these
+    are equal."""
+    import hashlib
+
+    return {name: {k: hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+                   for k, v in leaves.items()} for name, leaves in entries.items()}
+
+
+def parallel_steps(p, reg, device, mesh=None):
+    """PAR_STEPS updates of `reg` from the payload's weights and batches (in
+    Mixed, PBSpline of the aug-size phantoms with PAR_AUG_SEED's draws,
+    then the crop), on one process or, with `mesh`, each rank fed its rows
+    of the same batches; launch counts
+    reset just before and read just after. Returns the final entries, the
+    BatchNorm statistics after the first update, the losses, the launches
+    and ms a step (host clock over the steps, augmentation included)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.parallel.mesh import shard_batch
+
+    model = CSModel(cfg=p["cfg"][reg], device=device, seed=0)
+    model.load_entries(p["entries"][reg])
+    if mesh is not None:
+        model.distribute(mesh)
+    device = model.device
+    gen = torch.Generator(device=device).manual_seed(PAR_AUG_SEED)
+    shape = p["cfg"][reg].shape
+    losses = []
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for full, aux in p["batches"][reg]:
+        if reg == "Mixed":
+            batch = augmented_batch(full, aux, gen, device, shape)
+        else:
+            batch = [torch.as_tensor(x, device=device) for x in (full, aux)]
+        if mesh is not None:
+            batch = [shard_batch(mesh, x) for x in batch]
+        model.set_input(*batch)
+        model.update()
+        losses.append({k: float(v) for k, v in model._aux.items()})
+        if len(losses) == 1:
+            first = {name: {k: np.array(v) for k, v in entry.items() if k.startswith("stats/")}
+                     for name, entry in model.checkpoint(NETS).items() if name in NETS}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3 / len(p["batches"][reg])
+    launches = dict(kernels.LAUNCHES)
+    entries = model.checkpoint(NETS)
+    entries.pop("config")
+    return {"entries": entries, "first": first, "losses": losses, "launches": launches,
+            "ms": ms}
+
+
+def parallel_eval(p, device, mesh=None):
+    """`engine/eval.py::evaluate` over the payload's eval volumes (bucket
+    EVAL_BUCKET) with its weights, alone or on a distributed model; launch
+    counts reset just before and read just after."""
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.engine.eval import evaluate
+
+    model = CSModel(cfg=serving_cfg(p["eval_shape"]), device=device, seed=0)
+    model.load_entries(p["eval_entries"])
+    model.eval()
+    if mesh is not None:
+        model.distribute(mesh)
+    kernels.reset_launches()
+    stats = evaluate(model, p["volumes"], p["bucket"])
+    return {"stats": stats, "launches": dict(kernels.LAUNCHES)}
+
+
+def _parallel_rank(rank, workdir, device):
+    """One rank of phase 15's gloo world: the payload's Rec and Mixed steps
+    and its eval on a distributed model, written to rank<r>.pkl."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+    from spatialalignmentnetwork_tpu_torch.parallel.mesh import make_mesh
+
+    f32_precision()
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)  # two ranks on the CPU's cores, no oversubscription
+    with open(os.path.join(workdir, "payload.pkl"), "rb") as f:
+        p = pickle.load(f)
+    mesh = make_mesh(device=device, backend="gloo", rank=rank, world_size=PAR_WORLD,
+                     init_method="file://" + os.path.join(workdir, "store"))
+    try:
+        out = {reg: parallel_steps(p, reg, device, mesh) for reg in ("Rec", "Mixed")}
+        for step in out.values():
+            step["digest"] = digest(step["entries"])
+            if rank:
+                del step["entries"]  # rank 0's bits stand for both
+        out["eval"] = parallel_eval(p, device, mesh)
+        out["peak_mib"] = (torch.cuda.max_memory_allocated(mesh.device) / 2**20
+                           if mesh.device.type == "cuda" else 0.0)
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_cli(rng, device, shape, batch, net_scale, slices, root):
+    """15a: the train CLI (`engine/train.py::main`) on phase 12's phantom
+    volumes, one Rec epoch from --seed 0, alone and through
+    `--data_parallel`'s spawn path (one process a card: on one card a
+    world of 1 over nccl; on the CPU one over gloo); the two final
+    checkpoints leaf by leaf at the Adam bar (`dp_failures`)."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine import train
+    from spatialalignmentnetwork_tpu_torch.engine.checkpoint import ckpt_load
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    train_vols, val_vols = cli_volumes(rng, slices, shape)
+    datasets = (cli_slices(train_vols), cli_slices(val_vols))
+    steps = len(datasets[0]) // batch
+    runs, finals, launches = {}, {}, {}
+    for name, extra in (("alone", []), ("--data_parallel", ["--data_parallel"])):
+        logdir = os.path.join(root, name.strip("-"))
+        args = train.build_parser().parse_args(
+            cli_argv(logdir, "Rec", "T1", shape, batch, net_scale, device) + extra)
+        kernels.reset_launches()
+        runs[name] = train.main(args, datasets)
+        launches[name] = dict(kernels.LAUNCHES)
+        if runs[name] is None or runs[name]["iter_cnt"] != steps:
+            raise AssertionError(f"train CLI {name}: {runs[name] and runs[name]['iter_cnt']} "
+                                 f"iterations, {steps} expected")
+        finals[name] = ckpt_load(os.path.join(logdir, "ckpt", "ckpt_%010d.pt" % steps))
+    model = CSModel(cfg=train.build_cfg(args), device="cpu")
+    lr = float(model.cfg.lr)
+    fails, worst = dp_failures(finals["--data_parallel"], finals["alone"], steps, lr,
+                               bn_followed_biases(model))
+    ms = {name: 1e3 * r["epochs"][0]["seconds"] / r["epochs"][0]["steps"]
+          for name, r in runs.items()}
+    psnr = {name: r["epochs"][0]["val"]["metric_PSNR"] for name, r in runs.items()}
+    world = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    log(f"train CLI --data_parallel on {device} (spawned: a world of {world}) vs alone, "
+        f"Rec, {steps} steps of {batch} at {shape}x{shape}: largest parameter difference "
+        f"{worst[0]:.3g} ({worst[1]} {worst[2]}; the Adam bar {2.5 * lr * steps:.3g}); ms a "
+        f"step (host clock, loader and augmentation included) {ms}; val PSNR {psnr}; "
+        f"launches alone {launches['alone']}")
+    if fails:
+        raise AssertionError(f"train CLI --data_parallel vs alone: {fails}")
+
+
+def check_parallel(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scale="full",
+                   slices=CLI_SLICES, workdir=None, eval_slices=EVAL_SLICES):
+    """Phase 15, data parallelism (`parallel/mesh.py`, `CSModel.distribute`):
+
+      a. the train CLI's `--data_parallel` spawn path (`parallel_cli`);
+      b. a gloo world of PAR_WORLD processes on the one card (`device`),
+         each fed its rows of the same global batch of `batch`: PAR_STEPS
+         Rec updates at `shape` and PAR_STEPS Mixed updates (PBSpline 1.1
+         `shape` -> `shape`), against the same steps of one process on
+         the card from the same weights, batches and draws (`dp_failures`;
+         the BatchNorm statistics after the first update at
+         PAR_STEP1_RTOL; the statistics, u and v included, after the
+         last within PAR_STATS_RTOL of the largest of their kind in the
+         net; step 0's losses at LOSS_RTOL), both
+         ranks' parameters and
+         statistics the same bits, each rank's launch counts those of its
+         steps (REC_LAUNCHES; MIXED_LAUNCHES and PBSPLINE_LAUNCHES);
+      c. in the same world, `evaluate` of phase 11's volumes (drawn here,
+         of `eval_slices` slices, when phase 11 did not run at `shape`) on
+         the distributed model against it alone: per-volume PSNR within EVAL_PSNR_ATOL, the other scalars
+         at the eval bars, both ranks alike, EVAL_LAUNCHES a volume.
+
+    The gloo world's ms are a correctness run's: gloo stages every
+    collective through the host. Prints the phase's seconds and peak
+    device memory. Returns rank 0's launch counts of b and c. (The CPU
+    tests run it at a small shape and tiny widths on the CPU, where no
+    kernel launches.)"""
+    import pickle
+
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.engine import train
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+
+    t_phase = time.perf_counter()
+    is_cuda = torch.device(device).type == "cuda"
+    if is_cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    root = workdir or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                   "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        parallel_cli(rng, device, shape, batch, net_scale, slices, os.path.join(root, "cli"))
+        # b and c: one payload for every process
+        aug = shape * 11 // 10
+        p = {"cfg": {}, "entries": {}, "batches": {}, "bucket": EVAL_BUCKET}
+        for reg in ("Rec", "Mixed"):
+            cfg = train.build_cfg(train.build_parser().parse_args(
+                cli_argv("-", reg, "T1", shape, batch, net_scale, device)))
+            p["cfg"][reg] = cfg
+            p["entries"][reg] = random_entries(CSModel(cfg=cfg, device="cpu", seed=0), rng,
+                                               gan=reg == "Mixed")
+            p["batches"][reg] = [phantoms(rng, batch, aug if reg == "Mixed" else shape)
+                                 for _ in range(PAR_STEPS)]
+        if "eval_inputs" not in MEASURED or MEASURED["eval_inputs"][2] != shape:
+            model = CSModel(cfg=serving_cfg(shape), device="cpu", seed=0)
+            MEASURED["eval_inputs"] = (random_entries(model, rng, gan=True),
+                                       [eval_volume(rng, n, shape) for n in eval_slices],
+                                       shape)
+        p["eval_entries"], p["volumes"], p["eval_shape"] = MEASURED["eval_inputs"]
+        with open(os.path.join(root, "payload.pkl"), "wb") as f:
+            pickle.dump(p, f)
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_parallel_rank, args=(root, device), nprocs=PAR_WORLD)
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(PAR_WORLD):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        alone = {reg: parallel_steps(p, reg, device) for reg in ("Rec", "Mixed")}
+        alone["eval"] = parallel_eval(p, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    model = CSModel(cfg=p["cfg"]["Mixed"], device="cpu", seed=0)
+    noise = bn_followed_biases(model)
+    lr = float(model.cfg.lr)
+    want_launches = {"Rec": scaled(REC_LAUNCHES, PAR_STEPS),
+                     "Mixed": scaled(add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), PAR_STEPS),
+                     "eval": scaled(EVAL_LAUNCHES, len(p["volumes"]))}
+    for reg in ("Rec", "Mixed"):
+        got, want = ranks[0][reg], alone[reg]
+        fails, worst = dp_failures(got["entries"], want["entries"], PAR_STEPS, lr, noise)
+        first_fails, first_worst = stats_failures(got["first"], want["first"], PAR_STEP1_RTOL,
+                                                  PAR_STEP1_ATOL)
+        fails += first_fails
+        spread = stats_spread(got["entries"], want["entries"])
+        fails += [f"{n} {k} after {PAR_STEPS} updates: {v:.3g} of its largest"
+                  for (n, k), v in spread.items() if v > PAR_STATS_RTOL]
+        if any(r[reg]["digest"] != got["digest"] for r in ranks):
+            fails.append("the ranks' parameters or statistics differ in their bits")
+        for k, v in want["losses"][0].items():
+            if not abs(got["losses"][0][k] - v) <= LOSS_RTOL * abs(v) + 1e-6:
+                fails.append(f"step 0 {k}: {got['losses'][0][k]} vs {v}")
+        log(f"{reg} over a gloo world of {PAR_WORLD} on {device} (batch {batch} of "
+            f"{shape}x{shape}, {batch // PAR_WORLD} rows a rank) vs one process: largest "
+            f"parameter difference {worst[0]:.3g} ({worst[1]} {worst[2]}; the Adam bar "
+            f"{2.5 * lr * PAR_STEPS:.3g}); BatchNorm statistics' largest relative difference "
+            f"after the first update {first_worst[0]:.3g} ({first_worst[1]} {first_worst[2]}; "
+            f"bar {PAR_STEP1_RTOL}); after {PAR_STEPS}, the largest difference a net and "
+            f"kind as a share of its largest value (bar {PAR_STATS_RTOL}): "
+            f"{ {f'{n} {k}': float(f'{v:.3g}') for (n, k), v in spread.items()} }"
+            f"; step 0 losses {got['losses'][0]} vs "
+            f"{want['losses'][0]}; ms a step {[r[reg]['ms'] for r in ranks]} (a "
+            f"correctness run: gloo stages through the host) vs {want['ms']:.2f} alone; "
+            f"launches a rank {[r[reg]['launches'] for r in ranks]}")
+        if is_cuda:
+            for r, rank in enumerate(ranks):
+                if rank[reg]["launches"] != want_launches[reg]:
+                    fails.append(f"rank {r} launches {rank[reg]['launches']}, expected "
+                                 f"{want_launches[reg]}")
+        if fails:
+            raise AssertionError(f"{reg} data-parallel vs alone: {fails}")
+    got, want = ranks[0]["eval"]["stats"], alone["eval"]["stats"]
+    fails = [] if ranks[1]["eval"]["stats"] == got else ["the ranks' scalars differ"]
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k, v in w.items():
+            bar = (EVAL_PSNR_ATOL if k == "metric_PSNR" else EVAL_MI_ATOL if k == "metric_MI"
+                   else EVAL_RTOL * abs(v))
+            if not abs(g[k] - v) <= bar:
+                fails.append(f"volume {i} {k}: {g[k]} vs {v} (bar {bar})")
+    if is_cuda and any(r["eval"]["launches"] != want_launches["eval"] for r in ranks):
+        fails.append(f"eval launches {[r['eval']['launches'] for r in ranks]}, expected "
+                     f"{want_launches['eval']}")
+    log(f"eval over a gloo world of {PAR_WORLD} on {device}: {len(got)} volumes of "
+        f"{[len(v) for v in p['volumes']]} slices (bucket {p['bucket']}) vs one process: "
+        f"|PSNR diff| {[abs(g['metric_PSNR'] - w['metric_PSNR']) for g, w in zip(got, want)]} "
+        f"dB (bar {EVAL_PSNR_ATOL}); launches a rank {[r['eval']['launches'] for r in ranks]}")
+    if fails:
+        raise AssertionError(f"eval data-parallel vs alone: {fails}")
+    log(f"data-parallel phase on {device}: {time.perf_counter() - t_phase:.1f} s (the gloo "
+        f"world {world_s:.1f} s, process start included)"
+        + (f", peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB in "
+           f"this process, {[round(r['peak_mib'], 1) for r in ranks]} MiB in the ranks"
+           if is_cuda else ""))
+    return add_counts(ranks[0]["Rec"]["launches"], ranks[0]["Mixed"]["launches"],
+                      ranks[0]["eval"]["launches"])
+
+
 HMMA = {"conv.cu": {"conv3x3_tf32_kernel": "HMMA.1688.F32.TF32",
                     "conv3x3_bf16_kernel": "HMMA.16816.F32.BF16"},
         "mi.cu": {"mi_fwd_gram_kernel": "HMMA.1688.F32.TF32",
@@ -3871,6 +4291,23 @@ def precision_phases():
     return 0
 
 
+def parallel_phases():
+    """Phase 15 alone: build the grid sample and SSIM kernels (the steps'
+    and eval's), then `check_parallel`. 0 when it passes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels(["grid_sample.cu", "ssim.cu"])
+    check_parallel(np.random.default_rng(0))
+    return 0
+
+
 def main():
     import torch
 
@@ -3912,14 +4349,17 @@ def main():
     main_paths.append(masks)
     precision = check_precision(rng)  # draws after every earlier phase
     main_paths.append(precision)
+    parallel = check_parallel(rng)  # draws after every earlier phase
+    main_paths.append(parallel)
     for e in entries:
         # serving, the Rec and Mixed train steps, eval, the train CLI's
-        # Proposed stage, mask learning and the precision phase are the
-        # main paths (d_img runs on the Mixed ones, and on its own); the
+        # Proposed stage, mask learning, the precision phase and data
+        # parallelism are the main paths (d_img runs on the Mixed ones, and
+        # on its own); the
         # loss kernels run on the registration-loss library's entry points,
         # the conv on its own entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":
-            paths = [autograd, mixed, cli, masks, precision]
+            paths = [autograd, mixed, cli, masks, precision, parallel]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
         elif e["name"] in ("conv3x3", "conv3x3_bf16"):

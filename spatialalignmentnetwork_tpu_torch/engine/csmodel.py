@@ -80,6 +80,22 @@ checkpoints go both ways in the JAX package's directory layout (`load`,
 net_mask is `pruned` and, where the mask has one, its `weight` (LOUPE's
 logits, a Taylor mask's saliency) with its own Adam state.
 
+Data parallelism (the JAX package's `distribute` over a mesh, its
+multi-host contract): `distribute(mesh)` (`parallel/mesh.py`) replicates
+the model from rank 0 over a torch.distributed group. Then `set_input`
+before `update` or `taylor_step` takes this rank's rows of the global
+batch, and the step equals one process's step on the global batch: each
+(micro-)batch's global rows are shared out over the ranks (each half of
+forwardG's crossover cut apart, so that every rank keeps its own
+crossover), BatchNorm takes the global batch's statistics, and the
+gradients (Taylor's before they are squared) and the logged losses are
+averaged over the group with one coalesced all_reduce. `reconstruct` and
+the `set_input` before `test` take the whole batch on every rank: each
+rank computes its share of the rows and every rank gets the whole
+result. A batch whose rows do not divide over the ranks runs unsharded on
+every rank, with a warning (none in `reconstruct`). Only rank 0 writes
+checkpoints.
+
 The model lives on `device`, "cuda" unless the caller asks for "cpu"; with
 no card and no explicit "cpu" it raises rather than run on the CPU.
 """
@@ -91,10 +107,12 @@ from ..models import remat
 from ..models.gan import NetD, NetG, SpectralConv, loss_gan
 from ..models.layers import set_compute_dtype, stat_dtype
 from ..models.stn import SpatialTransformer, gradient_loss, gradient_loss_per_sample, warp
+from ..models.unet_lib import BatchNorm2d
 from ..models.varnet import VarNet
 from ..ops import masks as masks_lib
 from ..ops.fft import fft2, fftshift2, ifft2, rss
 from ..ops.ssim import ssimloss
+from ..parallel import mesh as mesh_lib
 from ..utils import metrics_torch as metrics
 from . import from_jax
 from .checkpoint import ckpt_load, ckpt_save, is_reference_entry
@@ -172,6 +190,8 @@ class CSModel:
         self.training = True
         self._batch = None
         self._aux = {}
+        self.mesh = None
+        self._dp_warned = set()
         f32_precision()
         if ckpt is not None:
             self.load(ckpt, cfg, objects)
@@ -232,6 +252,10 @@ class CSModel:
         )
         for name in NETS:
             set_compute_dtype(getattr(self, name), self.dtype).to(self.device).eval()
+        # the BatchNorms that take the global batch's statistics in a
+        # sharded step (`_sync_bn`)
+        self._bns = [m for name in NETS for m in getattr(self, name).modules()
+                     if isinstance(m, BatchNorm2d)]
         self.opt = {name: self._adam(getattr(self, name)) for name in NETS}
         # the mask: its kind's slopes and fresh `weight` from the seed, as
         # the JAX package's build; `pruned` a checkpoint's where given
@@ -287,6 +311,28 @@ class CSModel:
 
     def eval(self):
         return self.train(False)
+
+    def distribute(self, mesh):
+        """Data parallelism over `mesh` (`parallel/mesh.py::make_mesh`),
+        the counterpart of the JAX `distribute`: the nets, their Adam
+        state, the mask and `pruned` are broadcast from rank 0, so every
+        rank holds rank 0's model. The model must live on the mesh's
+        device. Then, as the JAX package's multi-host contract: `set_input`
+        before `update` or `taylor_step` takes this rank's rows of the
+        global batch (rank r's loader shard; in rank order the ranks' rows
+        make the global batch), and the step is the global batch's;
+        `reconstruct`, and `set_input` before `test`, take the whole batch
+        on every rank, and every rank gets the whole result. Call it after
+        the model is loaded: `load` builds new nets. Returns the model."""
+        device = self.device
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device != torch.device(mesh.device):
+            raise ValueError(f"the model lives on {self.device}, the mesh's rank on "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        mesh_lib.replicate_state(mesh, self)
+        return self
 
     def _nets_mode(self, train: bool):
         """Put the nets in train or eval mode, only on a change: a
@@ -384,7 +430,10 @@ class CSModel:
 
     def save(self, path, objects=None, with_opt=False):
         """Write `checkpoint(objects, with_opt)` as a checkpoint directory
-        the JAX `CSModel` loads."""
+        the JAX `CSModel` loads; on a distributed model rank 0 alone
+        writes (every rank holds the same state)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         ckpt_save(self.checkpoint(objects, with_opt), path)
 
     def checkpoint(self, objects=None, with_opt=False) -> dict:
@@ -494,7 +543,7 @@ class CSModel:
         }
 
     def _forward_TGR(self, env, with_G=False, with_R=True, stop_T=False,
-                     images=False) -> dict:
+                     images=False, shard=None) -> dict:
         """net_T -> warp [-> forwardG] [-> net_R]; returns {"offset",
         ["img_aligned",] ["img_rec"]}, and with `images` (the test step)
         also "img_warped" and "img_warped_rss" and, with G, "img_synth".
@@ -503,11 +552,19 @@ class CSModel:
         forwardG is the JAX package's batch-halving crossover: net_G
         synthesises the second half's target contrast from its reference,
         T = G(aux_RT), which is warped with the first half's reference,
-        R; then TR = G(R). img_aligned = cat([TR, RT])."""
+        R; then TR = G(R). img_aligned = cat([TR, RT]), the first half the
+        first ceil(n / 2) rows. `shard` (n, n1, k): these rows are a
+        rank's share of a global batch of n rows whose first half is n1
+        rows, the first k of them here (a rank's own rows, or its
+        `mesh_lib.split_rows` share)."""
         aux_abs = env["img_aux"].abs()
         sampled_abs = env["img_sampled"].abs()
+        if shard is None:
+            n = aux_abs.shape[0]
+            shard = (n, (n + 1) // 2, (n + 1) // 2)
+        n, n1_global, n1 = shard
         with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_T):
-            offset, grid = self._net_forward(self.net_T, 24, aux_abs, sampled_abs)
+            offset, grid = self._net_forward(self.net_T, 24, n, aux_abs, sampled_abs)
         out = {"offset": offset}
         if with_R:
             img_warped = warp(aux_abs, grid)
@@ -516,12 +573,12 @@ class CSModel:
                 out["img_warped_rss"] = rss(img_warped)
         if with_G:
             aux_rss = env["img_aux_rss"]
-            n1 = (aux_rss.shape[0] + 1) // 2
             # under bf16, synth and G(R) are bf16 and each cat with f32 is f32
-            synth = self._net_forward(self.net_G, 12, aux_rss[n1:])
+            synth = self._net_forward(self.net_G, 12, n - n1_global, aux_rss[n1:])
             warped_all = warp(torch.cat([aux_rss[:n1], synth]), grid)
             out["img_aligned"] = torch.cat(
-                [self._net_forward(self.net_G, 12, warped_all[:n1]), warped_all[n1:]])
+                [self._net_forward(self.net_G, 12, n1_global, warped_all[:n1]),
+                 warped_all[n1:]])
             if images:
                 out["img_synth"] = torch.cat([warped_all[:n1], synth])
         if with_R:
@@ -532,10 +589,12 @@ class CSModel:
         return out
 
     @staticmethod
-    def _net_forward(net, threshold, *args):
-        """net(*args); a training forward at a batch of `threshold` or more
+    def _net_forward(net, threshold, rows, *args):
+        """net(*args); a training forward of a batch of `rows` rows (the
+        global batch's, in a sharded step, as the JAX package's jitted
+        step sees it: every rank decides alike) at `threshold` or more
         is rematerialized (`_remat_tg`)."""
-        if net.training and torch.is_grad_enabled() and _remat_tg(args[0].shape[0], threshold):
+        if net.training and torch.is_grad_enabled() and _remat_tg(rows, threshold):
             return remat.checkpoint(net, *args)
         return net(*args)
 
@@ -550,19 +609,32 @@ class CSModel:
         img_full: complex [N, coils, H, W] fully-sampled image (numpy array
         or tensor); img_aux: the reference modality or None (zeros).
         Returns the reconstruction [N, 1, H, W] (real) on the model's device.
+        On a distributed model every rank passes the whole batch and gets
+        the whole reconstruction: each computes its contiguous share of
+        the rows, then the ranks gather them. A batch whose rows do not
+        divide over the ranks runs unsharded on every rank, silently
+        (any request size is expected here).
         """
         img_full, img_aux = self._to_device(img_full, img_aux)
         self._nets_mode(train=False)
         with torch.inference_mode():
-            return self.recon_step(img_full, img_aux)
+            n = img_full.shape[0]
+            if self.mesh is None or n % self.mesh.size:
+                return self.recon_step(img_full, img_aux)
+            rec = self.recon_step(mesh_lib.shard_batch(self.mesh, img_full),
+                                  mesh_lib.shard_batch(self.mesh, img_aux))
+            return mesh_lib.gather_rows(self.mesh, [rec])[0]
 
     # ---------------------------------------------------------------- train
     def set_input(self, img_full, img_aux=None):
-        """The next training batch: complex [N, coils, H, W] fully sampled
-        target and reference modality (None: zeros)."""
+        """The next batch: complex [N, coils, H, W] fully sampled target and
+        reference modality (None: zeros). On a distributed model, before
+        `update` or `taylor_step` this is this rank's rows of the global
+        batch (its loader's shard; the ranks' rows in rank order make the
+        global batch), before `test` the whole batch on every rank."""
         self._batch = self._to_device(img_full, img_aux)
 
-    def _regime_loss(self, env, regime):
+    def _regime_loss(self, env, regime, shard=None):
         """The JAX package's `_regime_loss`, the G-phase loss: the weighted
         sim, smooth and gan_sim terms, and the generator's adversarial term
         through net_D (train mode: its spectral-norm vectors advance).
@@ -570,7 +642,8 @@ class CSModel:
         cfg = self.cfg
         with_G = regime in GAN_REGIMES
         with_R = regime in ("None", "Rec", "Mixed")
-        out = self._forward_TGR(env, with_G, with_R, stop_T=(regime == "None"))
+        out = self._forward_TGR(env, with_G, with_R, stop_T=(regime == "None"),
+                                shard=shard)
         losses = {"loss_smooth": gradient_loss(out["offset"])}
         total = 0.0
         if with_R:
@@ -597,13 +670,13 @@ class CSModel:
         lr = loss_gan(pred_real, real=True, D_loss=True)
         return (lf + lr) * self.cfg.weight_gan, lf, lr
 
-    def _step_grads(self, env, regime, params):
-        """One (micro-)batch's gradients {net: [grad a param]} and losses.
-        The G-phase differentiates the nets of `params` but net_D (net_D's
-        weights get nothing from it, as in the JAX step); the D-phase, in
-        the GAN regimes, net_D alone."""
+    def _step_grads(self, env, regime, params, shard=None):
+        """One (micro-)batch's gradients {net: [grad a param]} and losses
+        (`shard`: `_forward_TGR`'s). The G-phase differentiates the nets
+        of `params` but net_D (net_D's weights get nothing from it, as in
+        the JAX step); the D-phase, in the GAN regimes, net_D alone."""
         names = [name for name in params if name != "net_D"]
-        total, losses, aligned = self._regime_loss(env, regime)
+        total, losses, aligned = self._regime_loss(env, regime, shard)
         flat = [p for name in names for p in params[name]]
         grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
         out = {name: [next(grads) for _ in params[name]] for name in names}
@@ -616,38 +689,104 @@ class CSModel:
                          for p, g in zip(params[name], out[name])]
         return out, losses
 
-    def _micro_batches(self, accum, gan):
-        """The batch of `set_input` as `accum` micro-batches: consecutive
-        rows, or in the GAN regimes slice i of each TR/RT half, so that
-        each micro-batch pairs its halves as the full batch does."""
-        full, aux = self._batch
+    @staticmethod
+    def _micro_rows(n, accum, gan):
+        """The rows of each of the `accum` micro-batches of a batch of n:
+        consecutive rows, or in the GAN regimes slice i of each TR/RT
+        half, so that each micro-batch pairs its halves as the full batch
+        does."""
         if accum == 1:
-            return [(full, aux)]
-        n = full.shape[0]
+            return [np.arange(n)]
         m = n // accum
         if not gan:
-            return [(full[i * m:(i + 1) * m], aux[i * m:(i + 1) * m])
-                    for i in range(accum)]
+            return [np.arange(i * m, (i + 1) * m) for i in range(accum)]
         half, m2 = n // 2, m // 2
+        return [np.concatenate([np.arange(i * m2, (i + 1) * m2),
+                                half + np.arange(i * m2, (i + 1) * m2)])
+                for i in range(accum)]
 
-        def part(x, i):
-            return torch.cat([x[i * m2:(i + 1) * m2], x[half + i * m2:half + (i + 1) * m2]])
+    def _global_rows(self):
+        """(rows of the global batch, this rank's first global row, every
+        rank's row count) of the batch of `set_input`."""
+        n = self._batch[0].shape[0]
+        if self.mesh is None:
+            return n, 0, [n]
+        counts = mesh_lib.row_counts(self.mesh, n)
+        return sum(counts), sum(counts[:self.mesh.rank]), counts
 
-        return [(part(full, i), part(aux, i)) for i in range(accum)]
+    def _warn_unsharded(self, what, n):
+        """The JAX package's one-time warning (its `_dp_active`), once a
+        batch size an entry point."""
+        if (what, n) not in self._dp_warned:
+            self._dp_warned.add((what, n))
+            print(f"WARNING: {what}: batch {n} does not divide over the "
+                  f"{self.mesh.size} ranks; this batch runs UNSHARDED on every rank "
+                  "(pick a divisible batch size)", flush=True)
+
+    def _plan(self, total, offset, counts, accum, gan):
+        """The train step's micro-batches [(full, aux, rows, shard)]: the
+        global `rows` that this rank computes, their images, and
+        `_forward_TGR`'s shard; and whether the step is sharded. Sharded
+        (a distributed model whose ranks hold equal rows and whose
+        micro-batches divide over them), each rank computes its own rows
+        where the step is one batch: forwardG's work on a row depends
+        only on the half it lies in, so a rank may hold rows of one half
+        alone. Under grad_accum each rank computes its `split_rows` share
+        of each micro-batch, gathering the global batch first, so that
+        every rank holds as many rows of each micro-batch (the group's
+        mean of the ranks' losses is the micro-batch's). Unsharded, every
+        rank computes every row."""
+        full, aux = self._batch
+        micro = self._micro_rows(total, accum, gan)
+        size = 1 if self.mesh is None else self.mesh.size
+        sharded = (self.mesh is not None and len(set(counts)) == 1
+                   and all(len(rows) % size == 0 for rows in micro))
+        if self.mesh is not None and not sharded:
+            self._warn_unsharded("update", total)
+        local = np.arange(offset, offset + full.shape[0])
+        if sharded and accum == 1:
+            n1 = (total + 1) // 2
+            k = int(np.clip(n1 - offset, 0, len(local)))
+            return [(full, aux, local, (total, n1, k))], True
+        steps = []
+        for rows in micro:
+            n1 = (len(rows) + 1) // 2
+            idx, k = (mesh_lib.split_rows(rows, n1 if gan else len(rows), size)[self.mesh.rank]
+                      if sharded else (rows, n1))
+            steps.append((idx, (len(rows), n1, k)))
+        if self.mesh is not None and not all(np.array_equal(i, local) for i, _ in steps):
+            full, aux = mesh_lib.gather_rows(self.mesh, [full, aux], local, total)
+            offset = 0
+        plan = []
+        for idx, shard in steps:
+            if np.array_equal(idx, np.arange(offset, offset + full.shape[0])):
+                plan.append((full, aux, idx, shard))
+            else:
+                t = torch.as_tensor(idx - offset, device=self.device)
+                plan.append((full[t], aux[t], idx, shard))
+        return plan, sharded
+
+    def _sync_bn(self, on: bool):
+        """Global-batch BatchNorm statistics over the mesh in every
+        BatchNorm of the nets (on), or each process's own (off)."""
+        for m in self._bns:
+            m.mesh = self.mesh if on else None
 
     def _spectral_convs(self):
         return [m for name in ("net_G", "net_D")
                 for m in getattr(self, name).modules() if isinstance(m, SpectralConv)]
 
     def _check_step(self, regime, accum):
-        """The refusals of `update`, before anything moves."""
+        """The refusals of `update`, before anything moves. Returns
+        `_global_rows()`: the checks hold the global batch."""
         if not self.training:
             raise RuntimeError("update() needs train mode (call train())")
         if self._batch is None:
             raise RuntimeError("update() needs a batch (call set_input())")
         if regime not in GRAD_NETS:
             raise ValueError(f"unknown regime {regime!r}")
-        n = self._batch[0].shape[0]
+        rows = self._global_rows()
+        n = rows[0]
         if regime in GAN_REGIMES and n // accum < 2:
             # forwardG halves the batch: batch 1 would push an empty half
             # through net_G's BatchNorm and poison net_G with NaN while every
@@ -666,11 +805,14 @@ class CSModel:
                 raise ValueError(
                     f"GAN-regime micro-batches must be even for the forwardG "
                     f"crossover: batch {n} / accum {accum} = {n // accum}")
+        return rows
 
     def _mask_draws(self, n, draws):
         """The thresholds of a learned-mask step, on the model's device:
         `draws` (soft [n, W], hard [1, W]) where the caller gives them,
-        else drawn from the model's generator."""
+        else drawn from the model's generator; n is the global batch's
+        rows (every rank draws them all, from the same generator state,
+        and takes its own)."""
         w = self.cfg.shape
         if draws is None:
             return (torch.rand((n, w), generator=self._mask_gen, device=self.device),
@@ -696,10 +838,12 @@ class CSModel:
         ([N, W]), net_mask steps with the regime's nets (None, Rec,
         Mixed), and then `pruned` is the hard sample of the updated logits
         against draws[1] ([1, W]); without `draws`, the thresholds come
-        from the model's generator (seeded by seed + 1)."""
+        from the model's generator (seeded by seed + 1). On a distributed
+        model the batch is this rank's rows, `draws` the global batch's
+        (the same on every rank), and the step the global batch's."""
         regime = self.cfg.reg
         accum = int(self.cfg.get("grad_accum", 1))
-        self._check_step(regime, accum)
+        total, offset, counts = self._check_step(regime, accum)
         gan = regime in GAN_REGIMES
         # the JAX package's condition (its csmodel.py:591)
         learn = self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False))
@@ -707,24 +851,37 @@ class CSModel:
         names += ("net_D",) if gan else ()
         params = {name: list(getattr(self, name).parameters()) for name in names}
         if learn:
-            soft_thresh, hard_thresh = self._mask_draws(self._batch[0].shape[0], draws)
+            soft_thresh, hard_thresh = self._mask_draws(total, draws)
         elif draws is not None:
             raise ValueError("mask draws given, but the step learns no mask")
+        plan, sharded = self._plan(total, offset, counts, accum, gan)
         self._nets_mode(train=True)
         sn_start = ([(m.weight_u.clone(), m.weight_v.clone()) for m in self._spectral_convs()]
                     if accum > 1 else None)
         sums, step_losses = None, []
-        for full, aux in self._micro_batches(accum, gan):
-            if sn_start is not None:  # each micro-batch from the step's u, v
-                for m, (u, v) in zip(self._spectral_convs(), sn_start):
-                    m.weight_u.copy_(u)
-                    m.weight_v.copy_(v)
-            soft = self._loupe_sample(full.shape[0], True, soft_thresh)[0] if learn else None
-            grads, losses = self._step_grads(self._prepare(full, aux, self.pruned, soft),
-                                             regime, params)
-            step_losses.append({k: v.detach() for k, v in losses.items()})
-            sums = grads if sums is None else {
-                name: [a + b for a, b in zip(sums[name], grads[name])] for name in sums}
+        self._sync_bn(sharded)
+        try:
+            for full, aux, rows, shard in plan:
+                if sn_start is not None:  # each micro-batch from the step's u, v
+                    for m, (u, v) in zip(self._spectral_convs(), sn_start):
+                        m.weight_u.copy_(u)
+                        m.weight_v.copy_(v)
+                soft = None
+                if learn:
+                    thresh = soft_thresh[torch.as_tensor(rows, device=self.device)]
+                    soft = self._loupe_sample(len(rows), True, thresh)[0]
+                grads, losses = self._step_grads(self._prepare(full, aux, self.pruned, soft),
+                                                 regime, params, shard)
+                step_losses.append({k: v.detach() for k, v in losses.items()})
+                sums = grads if sums is None else {
+                    name: [a + b for a, b in zip(sums[name], grads[name])] for name in sums}
+        finally:
+            self._sync_bn(False)
+        self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
+                     for k in step_losses[0]}
+        if self.mesh is not None:  # XLA's psum: the global batch's gradients and losses
+            mesh_lib.all_reduce_mean(
+                self.mesh, [g for name in names for g in sums[name]] + list(self._aux.values()))
         for name in names:
             for p, g in zip(params[name], sums[name]):
                 p.grad = g / accum if accum > 1 else g
@@ -732,8 +889,6 @@ class CSModel:
         if learn:  # the next step's data-consistency mask
             with torch.no_grad():
                 self.pruned = self._loupe_sample(1, False, hard_thresh)[1]
-        self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
-                     for k in step_losses[0]}
 
     # ------------------------------------------------------------- pruning
     def taylor_step(self):
@@ -741,12 +896,23 @@ class CSModel:
         each k-space line, the squared gradient of loss_sim * weight_sim
         with respect to a multiplier of that line (1 here), the nets in
         eval mode (no BatchNorm statistic or spectral-norm vector moves).
-        The vectors stay on the device until `prune`."""
+        The vectors stay on the device until `prune`. On a distributed
+        model the batch is this rank's rows: the gradient is averaged over
+        the group before it is squared, so that it is the global batch's
+        (the mean of the ranks' squares would be another number)."""
         if self.cfg.get("mask") != "taylor":
             raise ValueError(f"taylor_step needs a taylor mask, not {self.cfg.get('mask')!r}")
         if self._batch is None:
             raise RuntimeError("taylor_step() needs a batch (call set_input())")
         full, aux = self._batch
+        sharded = self.mesh is not None
+        if sharded:
+            total, offset, counts = self._global_rows()
+            if len(set(counts)) > 1:
+                self._warn_unsharded("taylor_step", total)
+                sharded = False
+                full, aux = mesh_lib.gather_rows(
+                    self.mesh, [full, aux], np.arange(offset, offset + full.shape[0]), total)
         self._nets_mode(train=False)
         mask_vec = torch.ones(self.cfg.shape, dtype=full.real.dtype, device=self.device,
                               requires_grad=True)
@@ -757,6 +923,8 @@ class CSModel:
         out = self._forward_TGR(env)
         loss = ssimloss(rss(full), out["img_rec"]) * self.cfg.weight_sim
         (grad,) = torch.autograd.grad(loss, mask_vec)
+        if sharded:
+            mesh_lib.all_reduce_mean(self.mesh, [grad])
         self._taylor_values.append((grad * grad).detach())
 
     def prune(self, num, thres=1.0, random=0.0):
@@ -795,20 +963,18 @@ class CSModel:
         self.pruned = torch.as_tensor(new, device=self.device)
 
     # ---------------------------------------------------------------- eval
-    def _test_step(self, img_full, img_aux, valid=None) -> dict:
+    def _test_images(self, img_full, img_aux, shard=None):
         """The JAX package's test step (`_make_test_step_fn`,
-        csmodel.py:824-886) on device tensors: the eval-mode forward with
-        net_G and net_R, its images, and the eval scalars. `valid` [N]
-        (1 a real slice, 0 a pad slice) makes every scalar a mean over
-        the real slices; a pad slice's values are dropped, not weighted by
-        0, so that a NaN there cannot reach the sums."""
+        csmodel.py:824-886) on device tensors, up to its scalars: the
+        eval-mode forward with net_G and net_R (`shard`: `_forward_TGR`'s),
+        its images {'img_*'} and each slice's values of the eval scalars,
+        in at least f32 as the JAX test step casts them."""
         env = self._prepare(img_full, img_aux, self.pruned)
-        out = self._forward_TGR(env, with_G=True, with_R=True, images=True)
-        # the scalars in at least f32, as the JAX test step casts them
+        out = self._forward_TGR(env, with_G=True, with_R=True, images=True, shard=shard)
         full, rec, warped = (at_least_f32(env["img_full_rss"]), at_least_f32(out["img_rec"]),
                              at_least_f32(out["img_warped_rss"]))
         mask = (1.0 - self.pruned.to(torch.float32))[None, None, None, :]
-        aux = {
+        images = {
             "img_full_rss": full,
             "img_sampled_rss": env["img_sampled_rss"],
             "img_aux_rss": env["img_aux_rss"],
@@ -820,28 +986,65 @@ class CSModel:
             "img_aligned": out["img_aligned"],
             "img_rec": rec,
         }
+        per_slice = {
+            "ssim": metrics.ssim_per_slice(full, rec),  # the one SSIM launch
+            "smooth": gradient_loss_per_sample(out["offset"]),
+            "gan_sim": torch.mean(torch.abs(at_least_f32(out["img_aligned"]) - full),
+                                  dim=(1, 2, 3)),
+            "mi": metrics.mi_per_slice(full, warped),
+            "mse": metrics.mse_per_slice(full, rec),
+            "mae": metrics.mae_per_slice(full, rec),
+        }
+        return images, per_slice
+
+    @staticmethod
+    def _test_scalars(per_slice, valid=None) -> dict:
+        """The eval scalars from each slice's values. `valid` [N] (1 a real
+        slice, 0 a pad slice) makes every scalar a mean over the real
+        slices; a pad slice's values are dropped, not weighted by 0, so
+        that a NaN there cannot reach the sums."""
         # one path for a whole volume and a padded one: valid None is all
         # ones, and every scalar a mean of per-slice values over the real
         # slices
-        w = (torch.ones(full.shape[0], device=full.device) if valid is None
+        ssim = per_slice["ssim"]
+        w = (torch.ones(ssim.shape[0], device=ssim.device) if valid is None
              else valid.to(torch.float32))
         real = w > 0
         n = torch.sum(w)
 
-        def wmean(per_slice):
-            return torch.sum(torch.where(real, per_slice * w, 0.0)) / n
+        def wmean(values):
+            return torch.sum(torch.where(real, values * w, 0.0)) / n
 
-        mse_s = metrics.mse_per_slice(full, rec)
-        aux["metric_SSIM"] = wmean(metrics.ssim_per_slice(full, rec))  # the one SSIM launch
+        aux = {"metric_SSIM": wmean(ssim)}
         aux["loss_sim"] = 1.0 - aux["metric_SSIM"]
-        aux["loss_smooth"] = wmean(gradient_loss_per_sample(out["offset"]))
-        aux["loss_gan_sim"] = wmean(
-            torch.mean(torch.abs(at_least_f32(out["img_aligned"]) - full), dim=(1, 2, 3)))
-        aux["metric_MI"] = wmean(metrics.mi_per_slice(full, warped))
-        aux["metric_MSE"] = wmean(mse_s)
+        aux["loss_smooth"] = wmean(per_slice["smooth"])
+        aux["loss_gan_sim"] = wmean(per_slice["gan_sim"])
+        aux["metric_MI"] = wmean(per_slice["mi"])
+        aux["metric_MSE"] = wmean(per_slice["mse"])
         aux["metric_PSNR"] = 10.0 * torch.log10(1.0 / aux["metric_MSE"])
-        aux["metric_MAE"] = wmean(metrics.mae_per_slice(full, rec))
+        aux["metric_MAE"] = wmean(per_slice["mae"])
         return aux
+
+    def _test_step(self, img_full, img_aux, valid=None) -> dict:
+        """The test step of one process on a whole batch: its images and
+        its scalars (`_test_scalars`)."""
+        images, per_slice = self._test_images(img_full, img_aux)
+        return {**images, **self._test_scalars(per_slice, valid)}
+
+    def _test_sharded(self, img_full, img_aux, valid=None) -> dict:
+        """The test step of a distributed model on the whole batch: this
+        rank's `split_rows` share, whose images and per-slice values the
+        ranks gather, then the scalars of the whole batch on every rank."""
+        n = img_full.shape[0]
+        n1 = (n + 1) // 2
+        idx, k = mesh_lib.split_rows(np.arange(n), n1, self.mesh.size)[self.mesh.rank]
+        t = torch.as_tensor(idx, device=self.device)
+        images, per_slice = self._test_images(img_full[t], img_aux[t], (n, n1, k))
+        keys = list(images) + list(per_slice)
+        whole = dict(zip(keys, mesh_lib.gather_rows(
+            self.mesh, [*images.values(), *per_slice.values()], t, n)))
+        return {**{k: whole[k] for k in images},
+                **self._test_scalars({k: whole[k] for k in per_slice}, valid)}
 
     def test(self, valid=None, sync=True):
         """Eval step on the batch of `set_input` (a whole volume). `valid`:
@@ -849,7 +1052,11 @@ class CSModel:
         on the model's device) for a volume padded to a bucket. Returns
         -metric_PSNR (-metric_MI for GAN-Only) as a float; with
         sync=False it returns None and reads nothing back, so that a
-        caller can stage the next volume while this one computes."""
+        caller can stage the next volume while this one computes. On a
+        distributed model every rank passes the whole batch and gets the
+        whole result: each computes its share of the slices, then the
+        ranks gather them (a batch whose slices do not divide over the
+        ranks runs unsharded on every rank, with a warning)."""
         if self.training:
             raise RuntimeError("test() needs eval mode (call eval())")
         if self._batch is None:
@@ -858,7 +1065,13 @@ class CSModel:
         with torch.inference_mode():
             if valid is not None:
                 valid = torch.as_tensor(valid, device=self.device)
-            self._aux = self._test_step(*self._batch, valid)
+            n = self._batch[0].shape[0]
+            if self.mesh is not None and n % self.mesh.size == 0:
+                self._aux = self._test_sharded(*self._batch, valid)
+            else:
+                if self.mesh is not None:
+                    self._warn_unsharded("test", n)
+                self._aux = self._test_step(*self._batch, valid)
         if not sync:
             return None
         key = "metric_MI" if self.cfg.get("reg") == "GAN-Only" else "metric_PSNR"

@@ -21,6 +21,15 @@ pinned host memory that does not block) and its step dispatched before
 volume i's scalars are read back, so that the copies and the host's
 readbacks overlap the card's work.
 
+`--data_parallel` (the JAX CLI's "batched 3-D volumes sharded across a
+slice" configuration) evaluates as the ranks of a torch.distributed world
+(`parallel/mesh.py`): one process a visible card (the CPU counts as one)
+spawned by the CLI, or the world of torchrun. Every rank stages each
+whole volume, `CSModel.test` shards its bucket-padded slices over the
+ranks and gathers the results, and rank 0 prints and writes the metrics
+and `--save`. The `--aux_aug` generator takes rank 0's clock seed, so
+that every rank warps its slices by the same draw.
+
 Runs on the card unless `--device cpu` is asked for; with no card and no
 `--device cpu` it raises.
 """
@@ -38,6 +47,7 @@ from ..data import augment
 from ..data.loader import to_device
 from ..data.paired_dataset import get_paired_volume_datasets
 from ..ops.crop import center_crop
+from ..parallel import mesh as mesh_lib
 from .csmodel import CSModel, resolve_device
 
 AFFINE = np.eye(4) * [0.7, -0.7, -5, 1]  # the reference's NIfTI affine
@@ -104,13 +114,20 @@ def evaluate(net, volumes, bucket=16, aux_aug=-1.0, save=None, draws=None):
     crop both to cfg.shape; `draws` gives each volume's draws (a list of
     `augment.draw` dicts of the padded slice count), else they come from a
     generator on the model's device seeded by the clock. save: a
-    directory for the volumes and grids, or None."""
+    directory for the volumes and grids, or None. On a distributed `net`
+    (`CSModel.distribute`) every rank runs the loop on every volume, the
+    generator seeded by rank 0's clock, and rank 0 alone prints and
+    saves; every rank returns the scalars."""
     cfg = net.cfg
     device = net.device
+    rank0 = net.mesh is None or net.mesh.rank == 0
     gen = None
     if aux_aug > 0 and draws is None:
+        seed = int(time.time())
+        if net.mesh is not None:
+            seed = mesh_lib.broadcast_int(net.mesh, seed)
         gen = torch.Generator(device=device)
-        gen.manual_seed(int(time.time()))
+        gen.manual_seed(seed)
     stat_eval = []
 
     def stage(volume):
@@ -128,6 +145,8 @@ def evaluate(net, volumes, bucket=16, aux_aug=-1.0, save=None, draws=None):
         keys = [k for k in kept if k.startswith(("loss_", "metric_"))]
         scalars = dict(zip(keys, torch.stack([kept[k] for k in keys]).cpu().tolist()))
         stat_eval.append(scalars)
+        if not rank0:
+            return
         print(f"volume {i}: " + str({k: round(v, 4) for k, v in scalars.items()}),
               flush=True)
         if save is not None:
@@ -160,11 +179,22 @@ def evaluate(net, volumes, bucket=16, aux_aug=-1.0, save=None, draws=None):
 
 
 def main(args):
+    """The CLI on flags `args`: the mean scalars (rank 0's, or None on a
+    host that does not hold rank 0)."""
     device = resolve_device(args.device)
+    if args.data_parallel and not mesh_lib.in_world():
+        return mesh_lib.launch(_main, args, device=device)
+    return _main(mesh_lib.make_mesh(device=device) if args.data_parallel else None, args)
+
+
+def _main(mesh, args):
+    """The CLI on one process: alone (mesh None) or as a rank of `mesh`."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     print(args)
-    if args.save is not None:
+    if rank0 and args.save is not None:
         os.makedirs(args.save, exist_ok=True)
-    if args.metric is not None:
+    if rank0 and args.metric is not None:
         os.makedirs(os.path.dirname(os.path.abspath(args.metric)), exist_ok=True)
     net = CSModel(ckpt=args.resume, device=device)  # FileNotFoundError if absent
     print("load ckpt from:", args.resume)
@@ -172,22 +202,29 @@ def main(args):
     crop = int(cfg.shape * 1.1) if args.aux_aug > 0 else cfg.shape
     volumes = get_paired_volume_datasets(args.val, crop=crop, protocals=args.protocals)
     net.eval()
+    if mesh is not None:
+        net.distribute(mesh)
+        print(f"data parallelism over {mesh.size} ranks ({mesh.backend}), rank {mesh.rank} "
+              f"on {mesh.device}")
     stat_eval = evaluate(net, volumes, args.bucket, args.aux_aug, args.save)
     # raise before writing the metrics file: a misconfigured --val must not
     # leave a present-but-empty file behind
     if not stat_eval:
         raise ValueError(f"no volumes found in {args.val}")
-    if args.metric is not None:
+    if rank0 and args.metric is not None:
         meta = {
             "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                        else "cpu"),
             "torch": torch.__version__,
             "checkpoint": os.path.abspath(args.resume),
         }
+        if mesh is not None:
+            meta["ranks"] = mesh.size
         with open(args.metric, "w") as f:
             json.dump({"meta": meta, "volumes": stat_eval}, f)
     vis = {key: statistics.mean([x[key] for x in stat_eval]) for key in stat_eval[0]}
-    print(vis)
+    if rank0:
+        print(vis)
     return vis
 
 
@@ -209,6 +246,9 @@ def build_parser():
     parser.add_argument("--bucket", type=int, default=16,
                         help="pad each volume's slice axis to a multiple of this "
                              "(pad slices are left out of the metrics); 0 disables")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="shard each volume's slices over every visible card "
+                             "(or the world of torchrun)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; no fallback to the CPU) or cpu")
     return parser

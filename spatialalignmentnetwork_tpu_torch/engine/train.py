@@ -30,12 +30,30 @@ that data in memory can be trained on without h5py.
 
 Runs on the card unless `--device cpu` is asked for; with no card and no
 `--device cpu` it raises. `--use_amp` trains under the bf16 policy
-(`cfg.use_amp`, engine/csmodel.py). Flags of modules not ported yet are
-refused, naming their ROADMAP item: `--data_parallel` and `--dist_*`
-(queue 1 item 8). Flags that cannot act raise
+(`cfg.use_amp`, engine/csmodel.py). Flags that cannot act raise
 ValueError naming the flag, as the JAX CLI's asserts: `--learn_mask`
 without `--mask loupe` or under `--reg GAN-Only`, `--prune_every` without
 `--prune_num` or with a LOUPE mask.
+
+Data parallelism (`--data_parallel`, `parallel/mesh.py`): one process a
+card, each a rank of a torch.distributed world (nccl on cards, gloo with
+`--device cpu`), the model replicated from rank 0 and each step the
+global batch's (`CSModel.distribute`). Outside a world, `--data_parallel`
+spawns one process for each visible card (the CPU counts as one); under
+torchrun (RANK and WORLD_SIZE set) or in a process that joined a group,
+the CLI joins that world; `--dist_coordinator HOST:PORT
+--dist_num_processes P --dist_process_id i` (one CLI a host, as the JAX
+CLI's multi-host flags) spawns this host's cards as ranks i x cards + k
+of a world of P x cards meeting at the coordinator. `--batch_size` stays
+the global batch: each rank loads its shard (`Loader(batch_size / W,
+num_shards=W, shard_index=rank)`) and folds its rank into the
+augmentation generator's seed; validation gathers the val batch, so that
+every rank scores the global batch and `best.pt` and `--intel_stop`
+decide alike. Rank 0 alone writes TensorBoard and checkpoints; image
+grids are skipped for W > 1, as the JAX CLI skips them. A world of more
+than one process needs `--data_parallel` and `--seed`, and a global
+batch that divides over it (ValueError otherwise, as the JAX CLI's
+asserts).
 """
 
 import argparse
@@ -52,6 +70,7 @@ from ..data import augment
 from ..data.loader import Loader, Prefetch, device_prefetch
 from ..data.paired_dataset import ConcatDataset, get_paired_volume_datasets
 from ..ops.crop import center_crop
+from ..parallel import mesh as mesh_lib
 from ..utils.visualize import save_image
 from .config import Config
 from .csmodel import CSModel, resolve_device
@@ -86,14 +105,46 @@ def draw_augmentation(policy, gen, n, count, device):
     return [augment.draw(gen, n, device, bspline=policy == "BSpline") for _ in range(count)]
 
 
-def refuse_unported(args):
-    """Raise for a flag whose module is not ported yet, naming its item of
-    ROADMAP queue 1, before anything is built."""
-    if (args.data_parallel or args.dist_coordinator is not None
-            or args.dist_num_processes is not None or args.dist_process_id is not None):
-        raise NotImplementedError(
-            "--data_parallel and --dist_*: data parallelism is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+def world_of(args, device) -> int:
+    """The number of ranks the flags ask for, after the JAX CLI's checks
+    of `--dist_*` as ValueErrors: the joined world's size (torchrun's, or
+    a group this process joined), else with `--dist_*` the processes x
+    this host's devices, else with `--data_parallel` this host's devices
+    (the cards; the CPU counts as one), else 1."""
+    dist_flags = (args.dist_coordinator, args.dist_num_processes, args.dist_process_id)
+    if any(f is not None for f in dist_flags):
+        if not args.data_parallel:
+            raise ValueError("--dist_coordinator, --dist_num_processes and "
+                             "--dist_process_id need --data_parallel")
+        if any(f is None for f in dist_flags):
+            raise ValueError("--dist_coordinator, --dist_num_processes and "
+                             "--dist_process_id go together")
+        if not 0 <= args.dist_process_id < args.dist_num_processes:
+            raise ValueError(f"--dist_process_id {args.dist_process_id} outside "
+                             f"{args.dist_num_processes} processes")
+        if mesh_lib.in_world():
+            raise ValueError("--dist_* in a world already joined (torchrun)")
+    if mesh_lib.in_world():
+        return mesh_lib.world_size()
+    if not args.data_parallel:
+        return 1
+    local = torch.cuda.device_count() if device.type == "cuda" else 1
+    return local * (args.dist_num_processes or 1)
+
+
+def check_world(args, world):
+    """The JAX CLI's asserts on a world of `world` ranks, as ValueErrors:
+    more than one needs --data_parallel, --seed (every rank draws the
+    same global shuffle) and a global batch that divides over it."""
+    if world > 1:
+        if not args.data_parallel:
+            raise ValueError(f"a world of {world} ranks needs --data_parallel")
+        if args.seed is None:
+            raise ValueError(f"a world of {world} ranks needs --seed, so that every "
+                             "rank draws the same global shuffle")
+    if args.batch_size % world:
+        raise ValueError(f"the global batch {args.batch_size} does not divide over "
+                         f"{world} ranks")
 
 
 def check_prune_schedule(prune_every, prune_num, mask):
@@ -210,9 +261,16 @@ def _vis_batch(slices_val, device):
             for m in range(len(items[0]))]
 
 
+def rank_seed(seed, rank):
+    """`seed` with `rank` folded in (the JAX CLI's `fold_in` of the process
+    index): the augmentation draws of rank r's rows."""
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
 def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
     """The epoch loop of the flags `args` on `net` from iteration
-    `iter_cnt`. Returns {"iter_cnt", "signal_end", "epochs": [{"epoch",
+    `iter_cnt`; on a distributed `net` (`CSModel.distribute`), this rank's
+    part of it (module docstring). Returns {"iter_cnt", "signal_end", "epochs": [{"epoch",
     "steps", "seconds" (the training part, host clock, loader and the
     card's work included), "val" (the mean val scalars or None),
     "val_loss"}], "scalars": [(tag, iteration, value), ...]: every scalar
@@ -223,13 +281,20 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
     check_prune_schedule(prune_every, args.prune_num, cfg.get("mask"))
     device = net.device
     is_cuda = device.type == "cuda"
+    mesh = net.mesh
+    world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    check_world(args, world)
     seed = args.seed if args.seed is not None else int(time.time())
-    loader_train = Loader(slices_train, args.batch_size, shuffle=True,
-                          num_workers=args.num_workers, drop_last=True, seed=seed)
-    loader_val = Loader(slices_val, args.batch_size, shuffle=False,
-                        num_workers=args.num_workers, drop_last=True)
-    batch_vis = _vis_batch(slices_val, device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the global batch, each rank loading its rows of it
+    shards = dict(num_shards=world, shard_index=rank)
+    loader_train = Loader(slices_train, args.batch_size // world, shuffle=True,
+                          num_workers=args.num_workers, drop_last=True, seed=seed, **shards)
+    loader_val = Loader(slices_val, args.batch_size // world, shuffle=False,
+                        num_workers=args.num_workers, drop_last=True, **shards)
+    # image grids need the whole val batch on one process: one rank only
+    batch_vis = _vis_batch(slices_val, device) if world == 1 else None
+    gen = torch.Generator(device=device).manual_seed(
+        seed if world == 1 else rank_seed(seed, rank))
     history = []
 
     def log_scalars(prefix, scalars, it):
@@ -286,7 +351,9 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
                 prof.stop()
                 trace = os.path.join(args.logdir, "trace")
                 os.makedirs(trace, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(trace, f"iter_{iter_cnt:010d}.json"))
+                suffix = f"_rank{rank}" if world > 1 else ""
+                prof.export_chrome_trace(
+                    os.path.join(trace, f"iter_{iter_cnt:010d}{suffix}.json"))
                 print(f"\nprofiler trace written to {trace}")
             time_start = time.time()
 
@@ -296,7 +363,7 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
                 if writer is not None:
                     for name, val in net.get_vis("histograms")["histograms"].items():
                         writer.add_histogram(tag="train/" + name, global_step=iter_cnt, **val)
-            if _due(iter_cnt, IMAGES_EVERY, IMAGES_EVERY_LATE):
+            if batch_vis is not None and _due(iter_cnt, IMAGES_EVERY, IMAGES_EVERY_LATE):
                 last_disp = iter_cnt
                 net.eval()
                 net.set_input(*batch_vis)
@@ -324,7 +391,10 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
         net.eval()
         stat_eval, stat_loss = [], []
         for batch in device_prefetch(iter(loader_val), device):
-            net.set_input(*[center_crop(x, (cfg.shape, cfg.shape)) for x in batch])
+            batch = [center_crop(x, (cfg.shape, cfg.shape)) for x in batch]
+            if mesh is not None:  # `test` takes the whole batch on every rank
+                batch = mesh_lib.gather_rows(mesh, batch)
+            net.set_input(*batch)
             stat_loss.append(net.test())
             stat_eval.append(net.get_vis("scalars")["scalars"])
         if not stat_eval:
@@ -354,24 +424,47 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
             "scalars": history, "prunes": prunes}
 
 
-def main(args):
-    refuse_unported(args)
+def main(args, datasets=None):
+    """The CLI on flags `args`: rank 0's `run` record, or None on a rank
+    whose host does not hold rank 0. `datasets`: (train slices, val
+    slices) in memory, in place of the manifests of --train and --val."""
     device = resolve_device(args.device)
     cfg = build_cfg(args)
     check_prune_schedule(args.prune_every, args.prune_num, cfg.mask)
+    world = world_of(args, device)
+    check_world(args, world)
+    if args.data_parallel and not mesh_lib.in_world():
+        return mesh_lib.launch(_main, args, datasets, device=device,
+                               coordinator=args.dist_coordinator,
+                               num_processes=args.dist_num_processes or 1,
+                               process_id=args.dist_process_id or 0)
+    return _main(mesh_lib.make_mesh(device=device) if args.data_parallel else None,
+                 args, datasets)
+
+
+def _main(mesh, args, datasets):
+    """The CLI on one process: alone (mesh None) or as a rank of `mesh`."""
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.rank == 0
+    cfg = build_cfg(args)
     print(args)
     for path in (args.logdir, os.path.join(args.logdir, "res"), os.path.join(args.logdir, "ckpt")):
         os.makedirs(path, exist_ok=True)
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if rank0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(args.logdir)
-    except Exception as e:  # noqa: BLE001 (TensorBoard is an optional log)
-        print("tensorboard unavailable:", e)
+            writer = SummaryWriter(args.logdir)
+        except Exception as e:  # noqa: BLE001 (TensorBoard is an optional log)
+            print("tensorboard unavailable:", e)
 
     print("loading model...")
     net, iter_cnt, ckpt = open_model(args, cfg, device)
+    if mesh is not None:
+        net.distribute(mesh)
+        print(f"data parallelism over {mesh.size} ranks ({mesh.backend}), rank {mesh.rank} "
+              f"on {mesh.device}")
     print(net.cfg)
     if writer is not None:
         writer.add_text("date", repr(time.ctime()))
@@ -382,7 +475,11 @@ def main(args):
         writer.add_text("ckpt", repr(ckpt))
 
     print("loading data...")
-    slices_train, slices_val, n_vol_train, n_vol_val = open_datasets(args, net.cfg)
+    if datasets is not None:
+        slices_train, slices_val = datasets
+        n_vol_train = n_vol_val = "?"
+    else:
+        slices_train, slices_val, n_vol_train, n_vol_val = open_datasets(args, net.cfg)
     print(f"done, {len(slices_train)} / {n_vol_train} for training, "
           f"{len(slices_val)} / {n_vol_val} for validation")
     print("training...")
@@ -453,7 +550,8 @@ def build_parser():
     parser.add_argument("--net_scale", type=str, default="full", choices=["full", "tiny"],
                         help="tiny = reduced nets for smoke tests")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="data parallelism (not ported yet: refused)")
+                        help="data parallelism over every visible card (or the "
+                             "world of torchrun, or of --dist_*)")
     parser.add_argument("--seed", type=int, default=None,
                         help="seed loader shuffling and augmentation RNG")
     parser.add_argument("--trace_at", type=int, default=0, metavar="N",
@@ -462,9 +560,13 @@ def build_parser():
     parser.add_argument("--save_opt", action="store_true",
                         help="include optimizer state in checkpoints")
     parser.add_argument("--dist_coordinator", type=str, default=None, metavar="HOST:PORT",
-                        help="multi-host training (not ported yet: refused)")
-    parser.add_argument("--dist_num_processes", type=int, default=None)
-    parser.add_argument("--dist_process_id", type=int, default=None)
+                        help="multi-host training: the rendezvous of process 0's host "
+                             "(with --data_parallel, --dist_num_processes and "
+                             "--dist_process_id)")
+    parser.add_argument("--dist_num_processes", type=int, default=None,
+                        help="multi-host training: the number of hosts (one CLI each)")
+    parser.add_argument("--dist_process_id", type=int, default=None,
+                        help="multi-host training: this host's index")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; no fallback to the CPU) or cpu")
     return parser

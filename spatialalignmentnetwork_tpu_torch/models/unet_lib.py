@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
 from . import remat
 from .layers import Conv2d, avg_pool2, stat_dtype, upsample_nearest2
 
@@ -34,23 +35,56 @@ class BatchNorm2d(nn.BatchNorm2d):
     least f32, the output in `compute_dtype` where one is set, else in
     the input's dtype. The recomputation of a checkpointed forward
     (`models/remat.py`) normalises alike but leaves the running
-    statistics alone: the forward updated them."""
+    statistics alone: the forward updated them.
+
+    With `mesh` set (a data-parallel step, `parallel/mesh.py`), training
+    takes the statistics of the global batch, the rows of every rank, as
+    XLA's partitioner does for the JAX package: the f32 per-channel sums
+    of x and x^2 and the element count go through one differentiable
+    all_reduce, and the normalisation's variance is two-pass, as
+    `F.batch_norm`'s on one process: a second all_reduce of the sums of
+    (x - mean)^2 (E[x^2] - E[x]^2 would cancel where the mean is large
+    beside the spread). The running statistics take the global mean and
+    flax's one-pass variance. Gradients flow back through both
+    all_reduces into every rank's rows. A rank may hold no rows."""
 
     compute_dtype = None
+    mesh = None
 
     def forward(self, x):
         out_dtype = self.compute_dtype or x.dtype
         x = x.to(stat_dtype(x.dtype))
         if not self.training:
             return super().forward(x).to(out_dtype)
+        if self.mesh is not None:
+            return self._global_forward(x).to(out_dtype)
         if not remat.recomputing():
             with torch.no_grad():
                 mean = x.mean(dim=(0, 2, 3))
                 var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-                self.running_mean.mul_(0.9).add_(0.1 * mean)
-                self.running_var.mul_(0.9).add_(0.1 * var)
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps).to(out_dtype)
+
+    def _update_running(self, mean, var):
+        self.running_mean.mul_(0.9).add_(0.1 * mean)
+        self.running_var.mul_(0.9).add_(0.1 * var)
+
+    def _global_forward(self, x):
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+        sums = all_reduce_sum(self.mesh, torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        centered = x - mean[None, :, None, None]
+        var = all_reduce_sum(self.mesh, (centered * centered).sum(dims)) / n
+        if not remat.recomputing():
+            with torch.no_grad():
+                self._update_running(
+                    mean, torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0))
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return centered * scale[None, :, None, None] + self.bias[None, :, None, None]
 
 
 class ConvBNAct(nn.Module):

@@ -39,8 +39,9 @@ augmentation), `--net_scale tiny`, batch 2.
     histograms, image grids, periodic checkpoints, `--trace_at`.
   * `--use_amp` (the bf16 policy) in both CLIs, their losses update by
     update at the bf16 step bar.
-  * Refusals: the flags of modules not ported yet, `--load_nets` without
-    `--resume`, `--device cuda` without a card.
+  * Refusals: `--load_nets` without `--resume`, `--device cuda` without
+    a card (the data-parallel flags' ValueErrors:
+    tests/test_torch_port_parallel_cli.py).
   * `chip_smoke.py`'s train-CLI phase on the CPU at a small shape.
 
 Inputs come from numpy seeds.
@@ -197,12 +198,11 @@ def _final(logdir, steps=STEPS):
     return os.path.join(logdir, "ckpt", "ckpt_%010d.pt" % steps)
 
 
-def checkpoint_failures(got_path, want_path, noise_keys):
+def checkpoint_failures(got_path, want_path, noise_keys, n=STEPS):
     """The leaves of checkpoint `got_path` that miss the parity bars against
-    `want_path` (see the module's docstring), as messages."""
+    `want_path` after n steps (see the module's docstring), as messages."""
     got, want = ckpt_load(got_path), jckpt_load(want_path)
     fails = []
-    n = STEPS
     for name in ("net_T", "net_R", "net_G", "net_D", "net_mask"):
         if set(got[name]) != set(want[name]):
             fails.append(f"{name}: keys differ")
@@ -402,18 +402,8 @@ def test_cadences_trace_and_native_cache(workspace, tmp_path, monkeypatch, write
             "cache_T2.bin.counts.json"]
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--data_parallel"], "item 8"), (["--dist_coordinator", "localhost:1234"], "item 8")],
-    ids=["flag1-item 8", "flag2-item 8"])  # the ids they had beside --use_amp's
-def test_flags_of_unported_modules_are_refused(workspace, tmp_path, flag, item):
-    _, csv = workspace
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(_port_args(tmp_path, csv, extra=flag))
-    assert not os.path.exists(tmp_path / "ckpt")
-
-
 def test_use_amp_trains_as_the_jax_cli(workspace, tmp_path, monkeypatch):
-    """`--use_amp` (once refused with the flags above): both CLIs `--resume`
+    """`--use_amp` (once refused): both CLIs `--resume`
     one JAX checkpoint of a bf16 model (its STN head non-zero), Rec, one
     epoch of 4 updates on JAX's draws; each update's losses at the bf16
     step bar of tests/test_torch_port_amp.py, the port's checkpoints f32
