@@ -190,7 +190,23 @@ failure:
      per-volume PSNR within EVAL_PSNR_ATOL (1e-3 dB), the other scalars at
      the eval bars. The gloo world's ms are a correctness run's (gloo
      stages every collective through the host), not a speed; the phase's
-     seconds and peak device memory. It draws after every earlier phase.
+     seconds and peak device memory. It draws after every earlier phase;
+ 16. library and tooling (phase 16 alone: `python3 -c "import sys,
+     chip_smoke; sys.exit(chip_smoke.export_phases())"`): (a) a full-width
+     `CSModel` (non-zero STN head) exported at batch 8 with torch.export
+     (`engine/export.py`) and reloaded from its bytes: the graph holds the
+     custom op `san::grid_sample_fwd` once and no aten grid sampler, the
+     replay matches live `reconstruct` (rtol 1e-5, atol 1e-6 x max), one
+     replayed request launches grid_sample_fwd once; the export's seconds,
+     the artifact's bytes, ms a request of the replay beside live's; (b)
+     `examples/torch_serve.py --resume` on (a)'s model in a fresh process;
+     (c) `utils/profiler.py`'s main at 320: parameter counts as on the
+     CPU, counted FLOPs as `utils/flops.py`'s conv terms, and `trace()`
+     around one `reconstruct` naming grid_sample_fwd_kernel; (d)
+     `auto_gpu(<the first visible card>, exclusive=True)` in a subprocess
+     that reconstructs on that one card, while a second subprocess's
+     non-blocking `Locker.acquire` fails (the lock must be free before). Its launches join the main paths'. It draws
+     after every earlier phase.
 
 Prints one JSON `kernels` line and the nvidia-smi line before the last
 line, and ends with {"ok": true, "device": {...}}. Exits non-zero, with
@@ -202,6 +218,7 @@ import contextlib
 import ctypes
 import json
 import os
+import select
 import shutil
 import subprocess
 import sys
@@ -3771,6 +3788,249 @@ TENSOR_CORES_ONLY = {"conv.cu": "conv3x3"}
 BUILD_CHECKED = (*HMMA, "lncc.cu", "ssim.cu", "grid_sample.cu")
 
 
+# --------------------------------------------------- phase 16: library and tooling
+EXPORT_OP = "san.grid_sample_fwd.default"
+# the replay against the live path: the same aten operations and kernel on
+# the same inputs (as the examples' rtol 1e-5, atol 1e-6), atol a fraction
+# of max |live|
+EXPORT_RTOL = 1e-5
+EXPORT_ATOL_REL = 1e-6
+EXPORT_SERVE_LINE = "reloaded artifact matches the live serving path"
+# the allocator's first subprocess: take the host lock, make the card it
+# is given (this process's first visible one) the only visible one,
+# reconstruct, report, and hold the lock until told
+AUTOGPU_HOLDER = """
+import json, sys
+import numpy as np
+from spatialalignmentnetwork_tpu_torch.utils.autogpu import auto_gpu
+lock = auto_gpu(sys.argv[2], exclusive=True)
+import torch
+import chip_smoke
+from spatialalignmentnetwork_tpu_torch import kernels
+from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+model = CSModel(cfg=chip_smoke.serving_cfg(int(sys.argv[1])))
+full, aux = chip_smoke.phantoms(np.random.default_rng(0), 1, int(sys.argv[1]))
+out = model.reconstruct(full, aux)
+print(json.dumps({"count": torch.cuda.device_count(), "visible": __import__("os").environ[
+    "CUDA_VISIBLE_DEVICES"], "finite": bool(torch.isfinite(out).all()),
+    "launches": dict(kernels.LAUNCHES)}), flush=True)
+sys.stdin.readline()
+lock.release()
+"""
+AUTOGPU_TAKER = """
+from spatialalignmentnetwork_tpu_torch.utils.autogpu import Locker
+print(Locker().acquire(blocking=False), flush=True)
+"""
+# seconds the holder may take to take the lock, build its model and report
+AUTOGPU_HOLDER_S = 300
+
+
+def repo_env():
+    """The environment of a subprocess that imports the repo's modules."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return root, {**os.environ, "PYTHONPATH": root}
+
+
+def program_targets(module):
+    return [str(n.target) for n in module.graph.nodes if n.op == "call_function"]
+
+
+def time_requests(fn, full, aux):
+    """ms a request of fn(full, aux) on the card: CUDA events around
+    TIMED_REQUESTS calls after WARMUP_REQUESTS."""
+    import torch
+
+    with torch.inference_mode():
+        for _ in range(WARMUP_REQUESTS):
+            fn(full, aux)
+        torch.cuda.synchronize()
+        with cuda_timer() as timer:
+            for _ in range(TIMED_REQUESTS):
+                fn(full, aux)
+    return timer.secs * 1e3 / TIMED_REQUESTS
+
+
+def check_export(rng):
+    """Phase 16, library and tooling:
+
+      a. export on the card: a `CSModel` at the default widths (SHAPE),
+         weights from the seed with a non-zero STN head (`random_entries`),
+         exported at BATCH
+         (`engine/export.py`) and reloaded from the bytes; its graph holds
+         the custom op `san::grid_sample_fwd` once and no aten grid
+         sampler; the replay against live `reconstruct` within EXPORT_RTOL
+         and EXPORT_ATOL_REL x max|live|; one replayed call launches
+         grid_sample_fwd once (counts reset just before, read just after);
+         the export's seconds, the artifact's bytes and ms a request of the
+         replay beside live's (CUDA events, TIMED after WARMUP requests);
+      b. examples/torch_serve.py --resume on a's model saved, in a fresh
+         process on the default device: exit 0 and its match line;
+      c. the profiler (`utils/profiler.py`'s main at SHAPE, --repeat 5):
+         the four nets' parameter counts those of the same nets on the CPU,
+         their counted FLOPs `analytic_flops` of `utils/flops.py`; `trace`
+         around one `reconstruct` writes a trace naming the forward kernel
+         (launches counted as in a);
+      d. the allocator: the host lock must be free; a subprocess takes
+         `auto_gpu(<this process's first visible card>, exclusive=True)`
+         and reconstructs, seeing that one card (its report awaited at
+         most AUTOGPU_HOLDER_S); a second subprocess's non-blocking
+         `Locker.acquire` fails while the first holds the lock, and this
+         process's succeeds after.
+
+    Prints the phase's seconds; writes its checkpoint under the gitignored
+    build/export/ and removes it. Returns the launch counts of the
+    replayed call and the traced reconstruct."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch import kernels
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
+    from spatialalignmentnetwork_tpu_torch.engine.export import (
+        export_reconstruct, load_exported,
+    )
+    from spatialalignmentnetwork_tpu_torch.utils import autogpu, profiler
+
+    t_phase = time.perf_counter()
+    # the earlier phases' cached blocks would leave the subprocesses of b
+    # and d no device memory
+    free_card()
+    root, env = repo_env()
+    shape, batch = SHAPE, BATCH
+    work = os.path.join(root, "build", "export")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counts = {}
+    try:
+        # a. export on the card
+        model = CSModel(cfg=serving_cfg(shape), device="cuda", seed=0)
+        model.load_entries(random_entries(model, rng))
+        full, aux = (torch.as_tensor(x, device=model.device)
+                     for x in phantoms(rng, batch, shape))
+        t0 = time.perf_counter()
+        blob = export_reconstruct(model, tuple(full.shape))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replay = load_exported(blob)
+        load_s = time.perf_counter() - t0
+        targets = program_targets(replay)
+        if targets.count(EXPORT_OP) != 1 or [t for t in targets if "grid_sampler" in t]:
+            raise AssertionError(f"the exported graph samples through "
+                                 f"{[t for t in targets if 'grid' in t]}")
+        live = model.reconstruct(full, aux)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with torch.inference_mode():
+            got = replay(full, aux)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches != {"grid_sample_fwd": 1}:
+            raise AssertionError(f"one replayed request launched {launches}")
+        counts = add_counts(counts, launches)
+        scale = float(live.abs().max())
+        err = float((got - live).abs().max())
+        torch.testing.assert_close(got, live, rtol=EXPORT_RTOL, atol=EXPORT_ATOL_REL * scale)
+        live_ms = time_requests(model.reconstruct, full, aux)
+        replay_ms = time_requests(replay, full, aux)
+        log(f"export on {model.device}: [{batch},1,{shape},{shape}] traced and serialized "
+            f"in {export_s:.2f} s, {len(blob)} bytes, reloaded in {load_s:.2f} s; "
+            f"{targets.count(EXPORT_OP)} {EXPORT_OP} node of {len(targets)} calls; replay vs live max|diff| {err:.3g} (max|live| "
+            f"{scale:.4g}); one replayed request launched {launches}; ms a request: "
+            f"replay {replay_ms:.3f}, live {live_ms:.3f} ({replay_ms / live_ms:.4f}x)")
+        MEASURED["export"] = {"replay_ms": replay_ms, "live_ms": live_ms, "bytes": len(blob),
+                              "export_s": export_s}
+        ckpt = os.path.join(work, "model")
+        model.save(ckpt)
+
+        # b. the serving example in a fresh process
+        free_card()
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, os.path.join(root, "examples", "torch_serve.py"), "--resume",
+             ckpt, "--batch", str(batch)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0 or EXPORT_SERVE_LINE not in out.stdout:
+            raise AssertionError(f"examples/torch_serve.py exited {out.returncode}:\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        log(f"examples/torch_serve.py --resume --batch {batch}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s (this process holding "
+            f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB): "
+            + " | ".join(ln for ln in out.stdout.splitlines() if not ln.startswith("Namespace")))
+
+        # c. the profiler
+        rows = profiler.main(["--shape", str(shape), "--repeat", "5"])
+        cpu_params = {name: profiler.param_count(module)
+                      for name, module, _ in profiler.nets(32, 1, "cpu")}
+        want_flops = profiler.analytic_flops(shape)
+        for name, params, flops, _ in rows:
+            if params != cpu_params[name] or flops != want_flops[name]:
+                raise AssertionError(f"{name}: {params} parameters (CPU {cpu_params[name]}), "
+                                     f"{flops} FLOPs (utils/flops.py {want_flops[name]})")
+        MEASURED["profiler"] = rows
+        logdir = os.path.join(work, "trace")
+        kernels.reset_launches()
+        with profiler.trace(logdir):
+            model.reconstruct(full, aux)
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        counts = add_counts(counts, launches)
+        (name,) = os.listdir(logdir)
+        with open(os.path.join(logdir, name)) as f:
+            text = f.read()
+        if "grid_sample_fwd_kernel" not in text:
+            raise AssertionError(f"the trace {name} names no grid_sample_fwd_kernel")
+        log(f"profiler on {model.device}: parameters and FLOPs as the CPU's and "
+            f"utils/flops.py's; trace {name} ({len(text)} bytes) names "
+            f"grid_sample_fwd_kernel {text.count('grid_sample_fwd_kernel')} time(s); "
+            f"launches {launches}")
+        del model, replay, live, got
+        free_card()
+
+        # d. the allocator
+        lock_path = autogpu.LOCK_PATH
+        mine = autogpu.Locker()
+        if not mine.acquire(blocking=False):
+            raise AssertionError(f"{lock_path} is held by another process on this host")
+        mine.release()
+        card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        holder = subprocess.Popen(
+            [sys.executable, "-c", AUTOGPU_HOLDER, str(shape), card], cwd=root,
+            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            ready, _, _ = select.select([holder.stdout], [], [], AUTOGPU_HOLDER_S)
+            if not ready:
+                raise AssertionError(f"the auto_gpu holder reported nothing in "
+                                     f"{AUTOGPU_HOLDER_S} s")
+            line = holder.stdout.readline()
+            if not line:
+                raise AssertionError(f"the auto_gpu holder died: {holder.stderr.read()[-3000:]}")
+            held = json.loads(line)
+            taker = subprocess.run([sys.executable, "-c", AUTOGPU_TAKER], cwd=root, env=env,
+                                   capture_output=True, text=True, timeout=120)
+            if taker.returncode != 0 or taker.stdout.strip() != "False":
+                raise AssertionError(f"the second Locker took {lock_path} while it was held: "
+                                     f"{taker.stdout}{taker.stderr[-2000:]}")
+            holder.stdin.write("\n")
+            holder.stdin.flush()
+            if holder.wait(timeout=120) != 0:
+                raise AssertionError(f"the auto_gpu holder exited {holder.returncode}")
+        finally:
+            if holder.poll() is None:
+                holder.kill()
+                holder.wait()
+        if (not held["finite"] or held["visible"] != card or held["count"] != 1
+                or held["launches"] != {"grid_sample_fwd": 1}):
+            raise AssertionError(f"under auto_gpu: {held}")
+        if not mine.acquire(blocking=False):
+            raise AssertionError(f"{lock_path} stayed locked after its holder exited")
+        mine.release()
+        log(f"auto_gpu({card!r}, exclusive=True): {held}; a second non-blocking Locker "
+            f"refused while held, then this process took {lock_path}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 16 (library and tooling): {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def check_build(source, lib, compiler_log):
     """A kernel library as compiled: each kernel's registers and spills
     (from nvcc's -Xptxas -v log) and its HMMA instructions (cuobjdump
@@ -4308,6 +4568,23 @@ def parallel_phases():
     return 0
 
 
+def export_phases():
+    """Phase 16 alone: build the grid sample kernel (the serving path's),
+    then `check_export`. 0 when it passes."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import f32_precision
+
+    f32_precision()
+    log(f"card: {nvidia_smi()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    build_kernels(["grid_sample.cu"])
+    check_export(np.random.default_rng(0))
+    return 0
+
+
 def main():
     import torch
 
@@ -4351,11 +4628,12 @@ def main():
     main_paths.append(precision)
     parallel = check_parallel(rng)  # draws after every earlier phase
     main_paths.append(parallel)
+    main_paths.append(check_export(rng))  # draws after every earlier phase
     for e in entries:
         # serving, the Rec and Mixed train steps, eval, the train CLI's
-        # Proposed stage, mask learning, the precision phase and data
-        # parallelism are the main paths (d_img runs on the Mixed ones, and
-        # on its own); the
+        # Proposed stage, mask learning, the precision phase, data
+        # parallelism and the exported serving program are the main paths
+        # (d_img runs on the Mixed ones, and on its own); the
         # loss kernels run on the registration-loss library's entry points,
         # the conv on its own entry point's ladder
         if e["name"] == "grid_sample_bwd_dimg":

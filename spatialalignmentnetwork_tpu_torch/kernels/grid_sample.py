@@ -1,6 +1,6 @@
 """Bilinear grid sample, forward and backward: the CUDA kernels of
-`csrc/grid_sample.cu`, their plain PyTorch versions, and the autograd
-Function that joins them.
+`csrc/grid_sample.cu`, their plain PyTorch versions, and the custom op
+with its registered backward that joins them.
 
 Replaces the Pallas TPU kernels of the JAX package's
 `ops/pallas/grid_sample.py`: `_forward` / `_kernel` (pallas_call at :222)
@@ -8,13 +8,16 @@ and the custom VJP's `_bwd`, `_kernel_dimg` (call :438) and
 `_kernel_dgrid` (call :451). Bound on the H100 by memory: see the note at
 the top of the CUDA source.
 
-`GridSample.apply(img, grid, padding_mode)` takes img [N, C, H, W] (f32,
+`grid_sample_fwd(img, grid, padding_mode)` takes img [N, C, H, W] (f32,
 or bf16 without a gradient) and grid [N, Ho, Wo, 2] f32 (x first,
 normalized to [-1, 1], align_corners=False) and returns [N, C, Ho, Wo] in
-the image type. Its backward gives d_grid when the grid needs a gradient
-and d_img when the image does. Each piece takes the kernel on CUDA tensors
-and the plain version on CPU tensors (`kernels.on_card`), so one code path
-serves both devices.
+the image type. It calls the custom op `san::grid_sample_fwd`
+(`grid_sample_op`), whose fake implementation lets torch.export and
+FakeTensorMode trace it without touching a pointer, and whose registered
+backward gives d_grid when the grid needs a gradient and d_img when the
+image does. Each piece takes the kernel on CUDA tensors and the plain
+version on CPU tensors (`kernels.on_card`), so one code path serves both
+devices.
 
 The backward follows JAX's autodiff of the JAX package's grid sample:
 floor-form tap derivatives, a tap outside the image reading 0 (as the
@@ -356,37 +359,55 @@ def _launcher(symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-# ------------------------------------------------------------ autograd
-class GridSample(torch.autograd.Function):
-    """grid_sample with the custom VJP of the JAX package's Pallas kernel:
-    kernels on CUDA tensors, plain versions on CPU tensors."""
+# ------------------------------------------------------------ custom op
+@torch.library.custom_op("san::grid_sample_fwd", mutates_args=())
+def grid_sample_op(img: torch.Tensor, grid: torch.Tensor,
+                   padding_mode: str) -> torch.Tensor:
+    """The forward as a torch.library op: the kernel on CUDA tensors, the
+    plain version on CPU tensors. Tracing (torch.export, FakeTensorMode)
+    reaches `_fake` instead and records the op as one node, so an exported
+    program launches the same kernel when it replays on the card."""
+    fwd = grid_sample_cuda if on_card(img) else grid_sample_plain
+    return fwd(img, grid, padding_mode)
 
-    @staticmethod
-    def forward(ctx, img, grid, padding_mode):
-        ctx.padding_mode = padding_mode
-        ctx.save_for_backward(img, grid)
-        fwd = grid_sample_cuda if on_card(img) else grid_sample_plain
-        return fwd(img, grid, padding_mode)
 
-    @staticmethod
-    def backward(ctx, gout):
-        img, grid = ctx.saved_tensors
-        gout = gout.contiguous()
-        card = on_card(img)
-        d_img = d_grid = None
-        if ctx.needs_input_grad[1]:
-            dgrid = grid_sample_bwd_dgrid_cuda if card else grid_sample_bwd_dgrid_plain
-            d_grid = dgrid(img, grid, gout, ctx.padding_mode)
-        if ctx.needs_input_grad[0]:
-            dimg = grid_sample_bwd_dimg_cuda if card else grid_sample_bwd_dimg_plain
-            d_img = dimg(grid, gout, img.shape, ctx.padding_mode).to(img.dtype)
-        return d_img, d_grid, None
+@grid_sample_op.register_fake
+def _fake(img, grid, padding_mode):
+    """The output's shape and type from the inputs' metadata alone."""
+    n, c = img.shape[:2]
+    return img.new_empty((n, c, grid.shape[1], grid.shape[2]))
+
+
+def _setup_context(ctx, inputs, output):
+    img, grid, padding_mode = inputs
+    ctx.padding_mode = padding_mode
+    ctx.save_for_backward(img, grid)
+
+
+def _backward(ctx, gout):
+    """The custom VJP of the JAX package's Pallas kernel: d_grid when the
+    grid needs a gradient, d_img when the image does; kernels on CUDA
+    tensors, plain versions on CPU tensors."""
+    img, grid = ctx.saved_tensors
+    gout = gout.contiguous()
+    card = on_card(img)
+    d_img = d_grid = None
+    if ctx.needs_input_grad[1]:
+        dgrid = grid_sample_bwd_dgrid_cuda if card else grid_sample_bwd_dgrid_plain
+        d_grid = dgrid(img, grid, gout, ctx.padding_mode)
+    if ctx.needs_input_grad[0]:
+        dimg = grid_sample_bwd_dimg_cuda if card else grid_sample_bwd_dimg_plain
+        d_img = dimg(grid, gout, img.shape, ctx.padding_mode).to(img.dtype)
+    return d_img, d_grid, None
+
+
+grid_sample_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def grid_sample_fwd(img: torch.Tensor, grid: torch.Tensor,
                     padding_mode: str = "zeros") -> torch.Tensor:
-    """Differentiable grid sample: kernels on CUDA tensors, plain versions
-    on CPU tensors."""
+    """Differentiable grid sample through `grid_sample_op`: kernels on
+    CUDA tensors, plain versions on CPU tensors."""
     _check(img, grid, padding_mode)
-    on_card(img)  # any other device raises here, before autograd records
-    return GridSample.apply(img, grid, padding_mode)
+    on_card(img)  # any other device raises here, before the op records
+    return grid_sample_op(img, grid, padding_mode)

@@ -6,7 +6,8 @@ package's `ops/grid_sample.py`).
   * grid_sample(input, grid, padding_mode): bilinear sampling; out-of-bounds
     reads are zero (zeros), edge-clamped (border) or edge-reflected
     (reflection). Differentiable in the image and the grid through the
-    autograd Function of `kernels/grid_sample.py`: on CUDA tensors the CUDA
+    custom op `san::grid_sample_fwd` of `kernels/grid_sample.py` and its
+    registered backward: on CUDA tensors the CUDA
     kernels run forward and backward, on CPU tensors their plain versions.
 """
 

@@ -52,6 +52,8 @@ torch.set_num_threads(2)
 ATOL = 1e-5
 GS_GRAD = dict(rtol=1e-4, atol=1e-5)
 SSIM_GRAD = dict(rtol=1e-4, atol=1e-6)
+# the grad_fn torch.library gives `san::grid_sample_fwd`'s registered backward
+OP_BACKWARD = "GeneratedBackwardFor_san_grid_sample_fwd_defaultBackward"
 
 
 def _complex(rng, shape):
@@ -271,9 +273,9 @@ def test_plain_grid_sample_backward_matches_jax(shapes, padding_mode):
 
 
 def test_grid_sample_function_backward_equals_autograd_of_plain():
-    """On CPU tensors the autograd Function runs the plain forward and the
-    plain backward; away from clamp ties its gradients are torch's own
-    autograd through the plain forward."""
+    """On CPU tensors the custom op runs the plain forward and the plain
+    backward; away from clamp ties its gradients are torch's own autograd
+    through the plain forward."""
     rng = np.random.default_rng(12)
     img = rng.standard_normal((2, 3, 16, 24)).astype(np.float32)
     g = rng.standard_normal((2, 3, 16, 24)).astype(np.float32)
@@ -281,24 +283,27 @@ def test_grid_sample_function_backward_equals_autograd_of_plain():
         for name in ("random", "out_of_range", "smooth"):
             grid = _grids(2, 16, 24)[name]
             grads = []
-            for fn in (lambda i, gr: kgs.GridSample.apply(i, gr, mode),
+            for fn in (lambda i, gr: kgs.grid_sample_fwd(i, gr, mode),
                        lambda i, gr: kgs.grid_sample_plain(i, gr, mode)):
                 i = torch.from_numpy(img).requires_grad_()
                 gr = torch.from_numpy(grid).requires_grad_()
                 out = fn(i, gr)
                 grads.append(torch.autograd.grad(out, (i, gr), torch.from_numpy(g)))
                 if len(grads) == 1:
-                    assert type(out.grad_fn).__name__ == "GridSampleBackward"
+                    assert out.grad_fn.name() == OP_BACKWARD
             for a, b in zip(*grads):
                 np.testing.assert_allclose(a.numpy(), b.numpy(), **GS_GRAD,
                                            err_msg=f"{mode} {name}")
 
 
-def test_mocked_cuda_route_keeps_the_gradient(monkeypatch):
-    """The card's route through the autograd Function: with the launchers
-    standing in for the kernels, the output has the Function as its
+@pytest.mark.parametrize("needs", [("img", "grid"), ("img",), ("grid",)])
+def test_mocked_cuda_route_keeps_the_gradient(monkeypatch, needs):
+    """The card's route through the custom op: with the launchers standing
+    in for the kernels, the output has the op's registered backward as its
     grad_fn (a ctypes-filled tensor alone would have none), and backward
-    runs the d_grid and d_img launchers once each."""
+    runs the d_grid launcher only where the grid needs a gradient and the
+    d_img launcher only where the image does (the STN-frozen None regime
+    takes no d_grid)."""
     calls = []
 
     def standin(name, fn):
@@ -314,18 +319,23 @@ def test_mocked_cuda_route_keeps_the_gradient(monkeypatch):
     monkeypatch.setattr(kgs, "grid_sample_bwd_dimg_cuda",
                         standin("dimg", kgs.grid_sample_bwd_dimg_plain))
     rng = np.random.default_rng(13)
-    img = torch.from_numpy(rng.random((2, 1, 16, 16)).astype(np.float32)).requires_grad_()
-    grid = torch.from_numpy(_grids(2, 16, 16)["smooth"]).requires_grad_()
+    img = torch.from_numpy(rng.random((2, 1, 16, 16)).astype(np.float32))
+    grid = torch.from_numpy(_grids(2, 16, 16)["smooth"])
+    img.requires_grad_("img" in needs)
+    grid.requires_grad_("grid" in needs)
     out = warp(img, grid)
     assert out.grad_fn is not None
-    assert type(out.grad_fn).__name__ == "GridSampleBackward"
+    assert out.grad_fn.name() == OP_BACKWARD
     out.square().sum().backward()
-    assert calls == ["fwd", "dgrid", "dimg"]
-    i2 = img.detach().clone().requires_grad_()
-    g2 = grid.detach().clone().requires_grad_()
+    assert calls == ["fwd"] + ["dgrid"] * ("grid" in needs) + ["dimg"] * ("img" in needs)
+    i2 = img.detach().clone().requires_grad_("img" in needs)
+    g2 = grid.detach().clone().requires_grad_("grid" in needs)
     kgs.grid_sample_plain(i2, g2).square().sum().backward()
-    np.testing.assert_allclose(img.grad.numpy(), i2.grad.numpy(), **GS_GRAD)
-    np.testing.assert_allclose(grid.grad.numpy(), g2.grad.numpy(), **GS_GRAD)
+    for mine, plain in ((img, i2), (grid, g2)):
+        if mine.requires_grad:
+            np.testing.assert_allclose(mine.grad.numpy(), plain.grad.numpy(), **GS_GRAD)
+        else:
+            assert mine.grad is None
 
 
 @pytest.mark.parametrize("padding_mode", ["border", "reflection"])

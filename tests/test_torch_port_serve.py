@@ -120,12 +120,13 @@ def test_fresh_build_matches_jax_mask_and_identity_warp():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, chip_smoke.py and the port's examples."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import spatialalignmentnetwork_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, examples.torch_quickstart, examples.torch_serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'spatialalignmentnetwork_tpu')]\n"
         "assert not bad, bad\n"
