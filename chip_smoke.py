@@ -107,7 +107,10 @@ failure:
      volumes; launch counts reset just before and read just after
      (EVAL_LAUNCHES a volume: 2 grid sample forwards, 1 SSIM forward);
      volumes/s and slices/s from CUDA events, each volume alone, the peak
-     device memory; one 4-slice volume (padded to 6) against the CPU,
+     device memory; the 16-slice volume again on a model built as the
+     eval CLI builds it at `--matmul_precision high` (TF32 on in every
+     net_R forward, off after; its PSNR beside f32's); one 4-slice volume
+     (padded to 6) against the CPU,
      with the test step in float64 on the CPU beside them, and two faults
      that metric_MI's bar must catch, read on the card's images. It draws
      after every earlier phase;
@@ -1886,21 +1889,34 @@ def step_grads_f64(cfg, entries, full, aux, draws=None):
     normalisation, on the step's input."""
     import torch
 
-    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
-    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
-
     model = f64_model(cfg, entries)
     model._batch = (torch.from_numpy(full).to(torch.complex128),
                     torch.from_numpy(aux).to(torch.complex128))
     with torch.no_grad():
         soft = (model._loupe_sample(full.shape[0], True, torch.from_numpy(draws[0]))[0]
                 if draws is not None else None)
-        k = model._prepare(*model._batch, model.pruned, soft)["img_k_sampled"]
-        acs = ifft2(k * acs_mask(k.shape[-1], model.num_low_frequencies)[None, None, None, :])
+    sens = sens_range(model, *model._batch, soft)
+    model.update(draws)
+    return net_grads(model), sens
+
+
+def sens_range(model, full, aux, soft=None):
+    """(min, median, max) of the sensitivity maps' magnitude before their
+    unit-magnitude normalisation, on the sampled k-space of `full` (a
+    batch on the model's device; `soft`: LOUPE's soft sample, else the
+    hard mask), in the nets' dtype."""
+    import torch
+
+    from spatialalignmentnetwork_tpu_torch.models.varnet import acs_mask
+    from spatialalignmentnetwork_tpu_torch.ops.fft import ifft2, rss
+
+    with torch.no_grad():
+        k = model._prepare(full, aux, model.pruned, soft)["img_k_sampled"]
+        acs = ifft2(k * acs_mask(k.shape[-1], model.num_low_frequencies,
+                                 k.device)[None, None, None, :])
         n, c, h, w = acs.shape
         sens = rss(model.net_R.sens_net.norm_unet(acs.reshape(n * c, 1, h, w)))
-    model.update(draws)
-    return net_grads(model), (float(sens.min()), float(sens.median()), float(sens.max()))
+    return float(sens.min()), float(sens.median()), float(sens.max())
 
 
 def net_grads(model):
@@ -2154,6 +2170,12 @@ def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_
             alone.append(f"{n} slices {start.elapsed_time(end):.2f} ms "
                          f"({start.elapsed_time(end) / n:.2f} a slice)")
         log(f"eval, each volume alone: {'; '.join(alone)}")
+    high = eval_at_precision(volumes[-1], bucket, "high", cfg=cfg, device=device, seed=0,
+                             entries=entries)
+    log(f"eval at --matmul_precision high on {model.device}: one volume of {slices[-1]} "
+        f"slices, {high}; metric_PSNR - f32 "
+        f"{high['metric_PSNR'] - stats[-1]['metric_PSNR']:.4g} dB; TF32 on in every net_R "
+        f"forward, off after")
 
     # card against the CPU, with float64 on the CPU beside them
     small = [eval_volume(rng, cpu_slices, shape)]
@@ -2188,6 +2210,44 @@ def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_
             raise AssertionError(f"eval metric_MI bar {EVAL_MI_ATOL} misses {fault}: "
                                  f"it moves MI by {moved}")
     return launches
+
+
+def tf32_switches():
+    """(cuDNN's, cuBLAS's) TF32 switches."""
+    import torch
+
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def eval_at_precision(volume, bucket, level, entries=None, **model):
+    """One volume through `engine/eval.py::evaluate` on a CSModel built as
+    the eval CLI builds its model at `--matmul_precision level` (`model`:
+    CSModel's other arguments; `entries` loaded into it where given), then
+    the CLI's return to f32 at its end. Fails unless both TF32 switches
+    were as `level` asks in every net_R forward and are off after. Returns
+    the volume's scalars."""
+    from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel, f32_precision
+    from spatialalignmentnetwork_tpu_torch.engine.eval import evaluate
+
+    net = CSModel(matmul_precision=level, **model)
+    if entries is not None:
+        net.load_entries(entries)
+    net.eval()
+    seen = []
+    hook = net.net_R.register_forward_pre_hook(lambda *_: seen.append(tf32_switches()))
+    try:
+        stats = evaluate(net, [volume], bucket)[0]
+    finally:
+        hook.remove()
+        f32_precision()
+    tf32 = level in ("default", "high")
+    if not seen or set(seen) != {(tf32, tf32)}:
+        raise AssertionError(f"--matmul_precision {level}: TF32 switches {set(seen)} in the "
+                             f"net_R forwards, expected {(tf32, tf32)}")
+    if tf32_switches() != (False, False):
+        raise AssertionError(f"--matmul_precision {level}: TF32 switches {tf32_switches()} "
+                             "after the eval, expected both off")
+    return stats
 
 
 def cli_argv(logdir, reg, ref, shape, batch, net_scale, device, mask="equispaced"):

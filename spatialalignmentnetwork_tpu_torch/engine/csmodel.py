@@ -49,6 +49,8 @@ crossover concatenates f32 and bf16 images into f32 before the warp, so
 the grid sample's backward kernels see f32 alone). cfg.net_R_remat
 recomputes each cascade in the backward; it is off where the cfg does
 not set it (the JAX package's default is on, chosen for a 16 GB TPU).
+The f32 convs and matmuls run in true f32, or in TF32 at the JAX levels
+"default" and "high" of `matmul_precision` (`set_matmul_precision`).
 net_T's and net_G's training forwards are recomputed from a batch of
 24 and a half batch of 12 up (`_remat_tg`), as in JAX; remat changes no
 value (`models/remat.py` replays BatchNorm and spectral-norm updates).
@@ -164,12 +166,29 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# the levels of JAX's `jax_default_matmul_precision`, which both JAX CLIs
+# set from --matmul_precision
+MATMUL_PRECISIONS = ("default", "high", "highest")
+
+
+def set_matmul_precision(level=None):
+    """The precision of the f32 convs (cuDNN) and matmuls (cuBLAS) at a
+    JAX level, with JAX's meaning on a GPU: "default" and "high" compute
+    them in TF32 (10 mantissa bits), "highest" in true f32. None, no level
+    asked for, is the port's own policy, true f32 (`f32_precision`).
+    Process-wide, like the switches themselves; the window ops keep their
+    convs in f32 whatever is set (`ops/window.py::f32_convs`)."""
+    if level is not None and level not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul precision {level!r} is none of {MATMUL_PRECISIONS}")
+    tf32 = level in ("default", "high")
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def f32_precision():
-    """Run at true f32: cuDNN runs f32 convs in TF32 by default (10
-    mantissa bits), which the JAX reference never does; pin both switches
-    off. Process-wide, like the switches themselves."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Run at true f32: cuDNN runs f32 convs in TF32 by default, which the
+    JAX reference never does on the TPU; pin both switches off."""
+    set_matmul_precision(None)
 
 
 def _with_zero_chan(x):
@@ -181,10 +200,14 @@ def _with_zero_chan(x):
 class CSModel:
     """Facade owning the four nets, their optimizers and the k-space mask."""
 
-    def __init__(self, cfg=None, ckpt=None, objects=None, device="cuda", seed=0):
+    def __init__(self, cfg=None, ckpt=None, objects=None, device="cuda", seed=0,
+                 matmul_precision=None):
         """From `cfg`, or from checkpoint `ckpt` (its own config unless
         `cfg` is given); `objects` names the nets to load from it, the
-        others built fresh from `seed` (`load`)."""
+        others built fresh from `seed` (`load`). Sets the process's conv
+        and matmul precision to `matmul_precision` (`set_matmul_precision`;
+        None: true f32), so that a model built later without a level
+        runs in f32 again."""
         self.device = resolve_device(device)
         self.seed = seed
         self.training = True
@@ -192,7 +215,7 @@ class CSModel:
         self._aux = {}
         self.mesh = None
         self._dp_warned = set()
-        f32_precision()
+        set_matmul_precision(matmul_precision)
         if ckpt is not None:
             self.load(ckpt, cfg, objects)
         elif objects is not None:

@@ -4,7 +4,7 @@ mirrors the reference's eval.py).
     python -m spatialalignmentnetwork_tpu_torch.engine.eval \
         --resume CKPT --val pairs.csv --protocals T2 T1 \
         [--metric metrics.json] [--save DIR] [--aux_aug 1.0] [--bucket 16] \
-        [--device cuda]
+        [--matmul_precision {default,high,highest}] [--device cuda]
 
 Loads a checkpoint in any layout `engine/checkpoint.py` reads (its config
 comes from inside it, so a checkpoint trained with `use_amp` evaluates
@@ -30,6 +30,12 @@ ranks and gathers the results, and rank 0 prints and writes the metrics
 and `--save`. The `--aux_aug` generator takes rank 0's clock seed, so
 that every rank warps its slices by the same draw.
 
+`--matmul_precision` takes the JAX CLI's levels with JAX's meaning on a
+GPU: "default" and "high" run the nets' f32 convs and matmuls in TF32,
+"highest" in true f32, which is also the policy without the flag
+(`engine/csmodel.py::set_matmul_precision`). The level holds for the
+CLI's run; the metrics file's `meta` records it.
+
 Runs on the card unless `--device cpu` is asked for; with no card and no
 `--device cpu` it raises.
 """
@@ -48,7 +54,7 @@ from ..data.loader import to_device
 from ..data.paired_dataset import get_paired_volume_datasets
 from ..ops.crop import center_crop
 from ..parallel import mesh as mesh_lib
-from .csmodel import CSModel, resolve_device
+from .csmodel import MATMUL_PRECISIONS, CSModel, f32_precision, resolve_device
 
 AFFINE = np.eye(4) * [0.7, -0.7, -5, 1]  # the reference's NIfTI affine
 SAVED = (("image", "img_full_rss"), ("aux", "img_aux_rss"),
@@ -196,8 +202,17 @@ def _main(mesh, args):
         os.makedirs(args.save, exist_ok=True)
     if rank0 and args.metric is not None:
         os.makedirs(os.path.dirname(os.path.abspath(args.metric)), exist_ok=True)
-    net = CSModel(ckpt=args.resume, device=device)  # FileNotFoundError if absent
+    # FileNotFoundError if absent
+    net = CSModel(ckpt=args.resume, device=device, matmul_precision=args.matmul_precision)
     print("load ckpt from:", args.resume)
+    try:
+        return _score(net, mesh, args, device, rank0)
+    finally:
+        f32_precision()  # the level holds for this run only
+
+
+def _score(net, mesh, args, device, rank0):
+    """The CLI's volumes scored by `net`; the metrics file written."""
     cfg = net.cfg
     crop = int(cfg.shape * 1.1) if args.aux_aug > 0 else cfg.shape
     volumes = get_paired_volume_datasets(args.val, crop=crop, protocals=args.protocals)
@@ -217,6 +232,7 @@ def _main(mesh, args):
                        else "cpu"),
             "torch": torch.__version__,
             "checkpoint": os.path.abspath(args.resume),
+            "matmul_precision": args.matmul_precision,
         }
         if mesh is not None:
             meta["ranks"] = mesh.size
@@ -249,6 +265,11 @@ def build_parser():
     parser.add_argument("--data_parallel", action="store_true",
                         help="shard each volume's slices over every visible card "
                              "(or the world of torchrun)")
+    parser.add_argument("--matmul_precision", type=str, default=None,
+                        choices=list(MATMUL_PRECISIONS),
+                        help="the f32 convs' and matmuls' precision, as JAX's on a GPU: "
+                             "default and high run them in TF32, highest (and no flag) "
+                             "in true f32")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; no fallback to the CPU) or cpu")
     return parser

@@ -6,7 +6,8 @@ mirrors the reference's train.py flag surface).
         --mask equispaced --sparsity 0.25 --smooth_weight 1000 \
         --gan_weight 0.1 --gan_sim_weight 1 --sim_weight 1 \
         --aux_aug PBSpline --batch_size 4 --prefetch \
-        [--resume CKPT [--load_nets net_mask ...]] [--device cuda]
+        [--resume CKPT [--load_nets net_mask ...]] \
+        [--matmul_precision {default,high,highest}] [--device cuda]
 
 Flow (the reference's train.py:61-315): a Config from the flags; a
 `CSModel` built fresh, resumed from the latest checkpoint of the logdir
@@ -30,7 +31,11 @@ that data in memory can be trained on without h5py.
 
 Runs on the card unless `--device cpu` is asked for; with no card and no
 `--device cpu` it raises. `--use_amp` trains under the bf16 policy
-(`cfg.use_amp`, engine/csmodel.py). Flags that cannot act raise
+(`cfg.use_amp`, engine/csmodel.py). `--matmul_precision` takes the JAX
+CLI's levels with JAX's meaning on a GPU: "default" and "high" run the
+nets' f32 convs and matmuls in TF32, "highest" in true f32, which is also
+the policy without the flag (`engine/csmodel.py::set_matmul_precision`);
+the level holds for the CLI's run. Flags that cannot act raise
 ValueError naming the flag, as the JAX CLI's asserts: `--learn_mask`
 without `--mask loupe` or under `--reg GAN-Only`, `--prune_every` without
 `--prune_num` or with a LOUPE mask.
@@ -73,7 +78,7 @@ from ..ops.crop import center_crop
 from ..parallel import mesh as mesh_lib
 from ..utils.visualize import save_image
 from .config import Config
-from .csmodel import CSModel, resolve_device
+from .csmodel import MATMUL_PRECISIONS, CSModel, f32_precision, resolve_device
 
 AUG_POLICIES = ("None", "Rigid", "BSpline", "PBSpline")
 
@@ -211,13 +216,15 @@ def latest_checkpoint(logdir):
 def open_model(args, cfg, device):
     """The model the flags ask for; returns (model, iteration count,
     checkpoint path or None). `--seed` also seeds what a load builds fresh
-    (the mask, the nets `--load_nets` leaves out)."""
+    (the mask, the nets `--load_nets` leaves out); the model sets the
+    process's conv and matmul precision to `--matmul_precision`."""
     seed = args.seed or 0
+    build = dict(seed=seed, matmul_precision=args.matmul_precision)
     if args.resume is None:
         if args.load_nets is not None:
             raise ValueError("--load_nets needs --resume")
         print("training from scratch...")
-        return CSModel(cfg=cfg, device=device, seed=seed), 0, None
+        return CSModel(cfg=cfg, device=device, **build), 0, None
     iter_cnt = 0
     if args.resume == "":
         ckpt, iter_cnt = latest_checkpoint(args.logdir)
@@ -225,7 +232,7 @@ def open_model(args, cfg, device):
     else:
         ckpt = args.resume
         print("will load specified ckpt from:", ckpt)
-    net = CSModel(cfg=cfg, ckpt=ckpt, objects=args.load_nets, device=device, seed=seed)
+    net = CSModel(cfg=cfg, ckpt=ckpt, objects=args.load_nets, device=device, **build)
     return net, iter_cnt, ckpt
 
 
@@ -460,6 +467,17 @@ def _main(mesh, args, datasets):
             print("tensorboard unavailable:", e)
 
     print("loading model...")
+    try:
+        return _train(mesh, args, datasets, cfg, device, writer)
+    finally:
+        f32_precision()  # the level of --matmul_precision holds for this run only
+        if writer is not None:
+            writer.flush()
+            writer.close()
+
+
+def _train(mesh, args, datasets, cfg, device, writer):
+    """The model, the data and `run`, as `_main` sets them up."""
     net, iter_cnt, ckpt = open_model(args, cfg, device)
     if mesh is not None:
         net.distribute(mesh)
@@ -483,12 +501,7 @@ def _main(mesh, args, datasets):
     print(f"done, {len(slices_train)} / {n_vol_train} for training, "
           f"{len(slices_val)} / {n_vol_val} for validation")
     print("training...")
-    try:
-        return run(net, slices_train, slices_val, args, writer, iter_cnt)
-    finally:
-        if writer is not None:
-            writer.flush()
-            writer.close()
+    return run(net, slices_train, slices_val, args, writer, iter_cnt)
 
 
 def try_int(v):
@@ -567,6 +580,11 @@ def build_parser():
                         help="multi-host training: the number of hosts (one CLI each)")
     parser.add_argument("--dist_process_id", type=int, default=None,
                         help="multi-host training: this host's index")
+    parser.add_argument("--matmul_precision", type=str, default=None,
+                        choices=list(MATMUL_PRECISIONS),
+                        help="the f32 convs' and matmuls' precision, as JAX's on a GPU: "
+                             "default and high run them in TF32, highest (and no flag) "
+                             "in true f32")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; no fallback to the CPU) or cpu")
     return parser
