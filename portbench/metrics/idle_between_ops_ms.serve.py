@@ -1,0 +1,11 @@
+"""idle_between_ops_ms.serve: Device-idle ms a request in the gaps whose
+innermost host op on the window's thread is one of the program's `san.*` spans other
+than `san.backward`, in the profiled sub-window."""
+
+from harness.spans import idle_between_ops_ms
+
+UNIT = "ms"
+
+
+def read(r):
+    return idle_between_ops_ms(r, 'serve')

@@ -1,0 +1,10 @@
+"""model_build_s.serve: Host seconds of the program's model build in set-up:
+its set-up record's `build.*` phases (utils/trace.py's SETUP)."""
+
+from harness.spans import model_build_s
+
+UNIT = "s"
+
+
+def read(r):
+    return model_build_s(r, 'serve')

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.bicubic import bicubic_resize2d
 from ..ops.grid_sample import affine_grid, identity_grid, warp
+from ..utils.trace import span
 
 ROTATION = 2 * math.pi * 0.005
 TRANSLATION = 0.05
@@ -86,16 +87,17 @@ def augment_batch(policy: str, batch, draws=None):
     "None" (no draws), "Rigid" or "BSpline" (`draws`: a list of one `draw`
     a modality; Rigid builds their rigid part alone), "PBSpline" (`draws`:
     one `draw`, whose rigid + B-spline grid deforms every modality)."""
-    if policy == "None":
-        return list(batch)
-    if policy in ("Rigid", "BSpline"):
-        if policy == "Rigid":
-            draws = [{"r": d["r"], "t": d["t"]} for d in draws]
-        return [augment(x, d)[0] for x, d in zip(batch, draws, strict=True)]
-    if policy == "PBSpline":
-        grid = deformation(draws, batch[0].shape)
-        return [_warp(x, grid) for x in batch]
-    raise ValueError(f"unknown augmentation policy: {policy!r}")
+    with span("san.augment"):
+        if policy == "None":
+            return list(batch)
+        if policy in ("Rigid", "BSpline"):
+            if policy == "Rigid":
+                draws = [{"r": d["r"], "t": d["t"]} for d in draws]
+            return [augment(x, d)[0] for x, d in zip(batch, draws, strict=True)]
+        if policy == "PBSpline":
+            grid = deformation(draws, batch[0].shape)
+            return [_warp(x, grid) for x in batch]
+        raise ValueError(f"unknown augmentation policy: {policy!r}")
 
 
 def scaled_deformation(img, factor: float, draws: dict):

@@ -116,6 +116,7 @@ from ..ops.fft import fft2, fftshift2, ifft2, rss
 from ..ops.ssim import ssimloss
 from ..parallel import mesh as mesh_lib
 from ..utils import metrics_torch as metrics
+from ..utils.trace import setup_timer, span
 from . import from_jax
 from .checkpoint import ckpt_load, ckpt_save, is_reference_entry
 
@@ -241,20 +242,22 @@ class CSModel:
         gen = torch.Generator().manual_seed(self.seed)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(torch.randint(2**31, (1,), generator=gen)))
-            self.net_T = SpatialTransformer(
-                channels=cfg.coils, feat=t_layers[0], layers=t_layers
-            )
-            self.net_R = VarNet(
-                num_cascades=cfg.get("net_R_cascades", 8),
-                sens_chans=cfg.get("net_R_sens_chans", 8),
-                sens_pools=cfg.get("net_R_sens_pools", 4),
-                chans=cfg.get("net_R_chans", 18),
-                pools=cfg.get("net_R_pools", 4),
-                use_ref=True,
-                # off unless the cfg sets it: the JAX package's default
-                # (on) was chosen to fit a 16 GB TPU
-                remat=bool(cfg.get("net_R_remat", False)),
-            )
+            with setup_timer("build.net_T"):
+                self.net_T = SpatialTransformer(
+                    channels=cfg.coils, feat=t_layers[0], layers=t_layers
+                )
+            with setup_timer("build.net_R"):
+                self.net_R = VarNet(
+                    num_cascades=cfg.get("net_R_cascades", 8),
+                    sens_chans=cfg.get("net_R_sens_chans", 8),
+                    sens_pools=cfg.get("net_R_sens_pools", 4),
+                    chans=cfg.get("net_R_chans", 18),
+                    pools=cfg.get("net_R_pools", 4),
+                    use_ref=True,
+                    # off unless the cfg sets it: the JAX package's default
+                    # (on) was chosen to fit a 16 GB TPU
+                    remat=bool(cfg.get("net_R_remat", False)),
+                )
         # zero-init head => identity transform at init, as in training
         torch.nn.init.zeros_(self.net_T.head.weight)
         torch.nn.init.zeros_(self.net_T.head.bias)
@@ -262,37 +265,42 @@ class CSModel:
         # from a generator of their own
         gan_gen = torch.Generator().manual_seed(
             int(torch.randint(2**31, (1,), generator=gen)))
-        self.net_G = NetG(
-            layers=tuple(cfg.get("net_G_layers", (64, 128, 256, 512, 512))),
-            generator=gan_gen,
-        )
-        self.net_D = NetD(
-            blocks=tuple(tuple(b) for b in cfg.get(
-                "net_D_blocks",
-                ((64,) * 2, (128,) * 2, (256,) * 2, (256,) * 2, (256,) * 2),
-            )),
-            generator=gan_gen,
-        )
-        for name in NETS:
-            set_compute_dtype(getattr(self, name), self.dtype).to(self.device).eval()
+        with setup_timer("build.net_G"):
+            self.net_G = NetG(
+                layers=tuple(cfg.get("net_G_layers", (64, 128, 256, 512, 512))),
+                generator=gan_gen,
+            )
+        with setup_timer("build.net_D"):
+            self.net_D = NetD(
+                blocks=tuple(tuple(b) for b in cfg.get(
+                    "net_D_blocks",
+                    ((64,) * 2, (128,) * 2, (256,) * 2, (256,) * 2, (256,) * 2),
+                )),
+                generator=gan_gen,
+            )
+        with setup_timer("build.to_device"):
+            for name in NETS:
+                set_compute_dtype(getattr(self, name), self.dtype).to(self.device).eval()
         # the BatchNorms that take the global batch's statistics in a
         # sharded step (`_sync_bn`)
         self._bns = [m for name in NETS for m in getattr(self, name).modules()
                      if isinstance(m, BatchNorm2d)]
-        self.opt = {name: self._adam(getattr(self, name)) for name in NETS}
+        with setup_timer("build.optimizers"):
+            self.opt = {name: self._adam(getattr(self, name)) for name in NETS}
         # the mask: its kind's slopes and fresh `weight` from the seed, as
         # the JAX package's build; `pruned` a checkpoint's where given
-        self.mask = masks_lib.make_mask(
-            cfg.mask, cfg.shape, cfg.get("sparsity"), seed=self.seed
-        )
-        self.net_mask = masks_lib.MaskNet()
-        if self.mask.weight is not None:
-            self._set_mask_weight(self.mask.weight)
-        if pruned is None:
-            pruned = self.mask.pruned
-        self.pruned = torch.as_tensor(
-            np.asarray(pruned).astype(bool), device=self.device
-        )
+        with setup_timer("build.mask"):
+            self.mask = masks_lib.make_mask(
+                cfg.mask, cfg.shape, cfg.get("sparsity"), seed=self.seed
+            )
+            self.net_mask = masks_lib.MaskNet()
+            if self.mask.weight is not None:
+                self._set_mask_weight(self.mask.weight)
+            if pruned is None:
+                pruned = self.mask.pruned
+            self.pruned = torch.as_tensor(
+                np.asarray(pruned).astype(bool), device=self.device
+            )
         self._taylor_values = []
         # the draws of mask learning (the JAX package keys them from
         # PRNGKey(seed + 1)) and of `prune`'s jitter
@@ -537,33 +545,35 @@ class CSModel:
 
     # ---------------------------------------------------------------- forward
     def _to_device(self, img_full, img_aux):
-        img_full = torch.as_tensor(img_full, device=self.device).to(torch.complex64)
-        img_aux = (
-            torch.zeros_like(img_full) if img_aux is None
-            else torch.as_tensor(img_aux, device=self.device).to(torch.complex64)
-        )
+        with span("san.to_device"):
+            img_full = torch.as_tensor(img_full, device=self.device).to(torch.complex64)
+            img_aux = (
+                torch.zeros_like(img_full) if img_aux is None
+                else torch.as_tensor(img_aux, device=self.device).to(torch.complex64)
+            )
         return img_full, img_aux
 
     def _prepare(self, img_full, img_aux, pruned, soft=None):
         """set_input's undersampling: by the hard `pruned` vector, or by
         `soft` [N, W], LOUPE's soft sample, through which the gradient
         reaches the mask's logits."""
-        img_k_full = fft2(img_full)
-        if soft is None:
-            img_k_sampled = masks_lib.apply_mask(img_k_full, pruned)
-        else:
-            img_k_sampled = img_k_full * soft[:, None, None, :]
-        img_sampled = ifft2(img_k_sampled)
-        return {
-            "img_full": img_full,
-            "img_aux": img_aux,
-            "img_k_full": img_k_full,
-            "img_k_sampled": img_k_sampled,
-            "img_sampled": img_sampled,
-            "img_full_rss": rss(img_full),
-            "img_sampled_rss": rss(img_sampled),
-            "img_aux_rss": rss(img_aux),
-        }
+        with span("san.prepare"):
+            img_k_full = fft2(img_full)
+            if soft is None:
+                img_k_sampled = masks_lib.apply_mask(img_k_full, pruned)
+            else:
+                img_k_sampled = img_k_full * soft[:, None, None, :]
+            img_sampled = ifft2(img_k_sampled)
+            return {
+                "img_full": img_full,
+                "img_aux": img_aux,
+                "img_k_full": img_k_full,
+                "img_k_sampled": img_k_sampled,
+                "img_sampled": img_sampled,
+                "img_full_rss": rss(img_full),
+                "img_sampled_rss": rss(img_sampled),
+                "img_aux_rss": rss(img_aux),
+            }
 
     def _forward_TGR(self, env, with_G=False, with_R=True, stop_T=False,
                      images=False, shard=None) -> dict:
@@ -586,29 +596,33 @@ class CSModel:
             n = aux_abs.shape[0]
             shard = (n, (n + 1) // 2, (n + 1) // 2)
         n, n1_global, n1 = shard
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_T):
+        with span("san.net_T"), torch.set_grad_enabled(torch.is_grad_enabled() and not stop_T):
             offset, grid = self._net_forward(self.net_T, 24, n, aux_abs, sampled_abs)
         out = {"offset": offset}
         if with_R:
-            img_warped = warp(aux_abs, grid)
+            with span("san.warp"):
+                img_warped = warp(aux_abs, grid)
             if images:
                 out["img_warped"] = img_warped
                 out["img_warped_rss"] = rss(img_warped)
         if with_G:
             aux_rss = env["img_aux_rss"]
             # under bf16, synth and G(R) are bf16 and each cat with f32 is f32
-            synth = self._net_forward(self.net_G, 12, n - n1_global, aux_rss[n1:])
-            warped_all = warp(torch.cat([aux_rss[:n1], synth]), grid)
-            out["img_aligned"] = torch.cat(
-                [self._net_forward(self.net_G, 12, n1_global, warped_all[:n1]),
-                 warped_all[n1:]])
+            with span("san.net_G"):
+                synth = self._net_forward(self.net_G, 12, n - n1_global, aux_rss[n1:])
+            with span("san.warp"):
+                warped_all = warp(torch.cat([aux_rss[:n1], synth]), grid)
+            with span("san.net_G"):
+                synth_r = self._net_forward(self.net_G, 12, n1_global, warped_all[:n1])
+            out["img_aligned"] = torch.cat([synth_r, warped_all[n1:]])
             if images:
                 out["img_synth"] = torch.cat([warped_all[:n1], synth])
         if with_R:
             mask = torch.logical_not(self.pruned)[None, None, None, :]
-            out["img_rec"] = self.net_R(
-                env["img_k_sampled"], mask, img_warped, self.num_low_frequencies
-            )
+            with span("san.net_R"):
+                out["img_rec"] = self.net_R(
+                    env["img_k_sampled"], mask, img_warped, self.num_low_frequencies
+                )
         return out
 
     @staticmethod
@@ -638,15 +652,16 @@ class CSModel:
         divide over the ranks runs unsharded on every rank, silently
         (any request size is expected here).
         """
-        img_full, img_aux = self._to_device(img_full, img_aux)
-        self._nets_mode(train=False)
-        with torch.inference_mode():
-            n = img_full.shape[0]
-            if self.mesh is None or n % self.mesh.size:
-                return self.recon_step(img_full, img_aux)
-            rec = self.recon_step(mesh_lib.shard_batch(self.mesh, img_full),
-                                  mesh_lib.shard_batch(self.mesh, img_aux))
-            return mesh_lib.gather_rows(self.mesh, [rec])[0]
+        with span("san.reconstruct"):
+            img_full, img_aux = self._to_device(img_full, img_aux)
+            self._nets_mode(train=False)
+            with torch.inference_mode():
+                n = img_full.shape[0]
+                if self.mesh is None or n % self.mesh.size:
+                    return self.recon_step(img_full, img_aux)
+                rec = self.recon_step(mesh_lib.shard_batch(self.mesh, img_full),
+                                      mesh_lib.shard_batch(self.mesh, img_aux))
+                return mesh_lib.gather_rows(self.mesh, [rec])[0]
 
     # ---------------------------------------------------------------- train
     def set_input(self, img_full, img_aux=None):
@@ -667,50 +682,60 @@ class CSModel:
         with_R = regime in ("None", "Rec", "Mixed")
         out = self._forward_TGR(env, with_G, with_R, stop_T=(regime == "None"),
                                 shard=shard)
-        losses = {"loss_smooth": gradient_loss(out["offset"])}
-        total = 0.0
-        if with_R:
-            losses["loss_sim"] = ssimloss(env["img_full_rss"], out["img_rec"])
-            total = total + losses["loss_sim"] * cfg.weight_sim
-        if regime != "None":
-            total = total + losses["loss_smooth"] * cfg.weight_smooth
+        with span("san.loss"):
+            losses = {"loss_smooth": gradient_loss(out["offset"])}
+            total = 0.0
+            if with_R:
+                losses["loss_sim"] = ssimloss(env["img_full_rss"], out["img_rec"])
+                total = total + losses["loss_sim"] * cfg.weight_sim
+            if regime != "None":
+                total = total + losses["loss_smooth"] * cfg.weight_smooth
+            if with_G:
+                aligned = out["img_aligned"]
+                losses["loss_gan_sim"] = torch.mean(torch.abs(aligned - env["img_full_rss"]))
+                total = total + losses["loss_gan_sim"] * cfg.weight_gan_sim
         if with_G:
-            aligned = out["img_aligned"]
-            losses["loss_gan_sim"] = torch.mean(torch.abs(aligned - env["img_full_rss"]))
-            total = total + losses["loss_gan_sim"] * cfg.weight_gan_sim
-            pred_fake = self.net_D(_with_zero_chan(aligned))
-            losses["loss_gan_G"] = loss_gan(pred_fake, real=False, D_loss=False)
-            total = total + losses["loss_gan_G"] * cfg.weight_gan
+            with span("san.net_D"):
+                pred_fake = self.net_D(_with_zero_chan(aligned))
+            with span("san.loss"):
+                losses["loss_gan_G"] = loss_gan(pred_fake, real=False, D_loss=False)
+                total = total + losses["loss_gan_G"] * cfg.weight_gan
         losses["loss_all"] = total
         return total, losses, out.get("img_aligned")
 
     def _d_phase_loss(self, img_aligned, img_full_rss):
         """The second pass: net_D on the detached fake, then on the real
         image. Returns (total, loss_fake, loss_real)."""
-        pred_fake = self.net_D(_with_zero_chan(img_aligned.detach()))
-        pred_real = self.net_D(_with_zero_chan(img_full_rss))
-        lf = loss_gan(pred_fake, real=False, D_loss=True)
-        lr = loss_gan(pred_real, real=True, D_loss=True)
-        return (lf + lr) * self.cfg.weight_gan, lf, lr
+        with span("san.net_D"):
+            pred_fake = self.net_D(_with_zero_chan(img_aligned.detach()))
+        with span("san.net_D"):
+            pred_real = self.net_D(_with_zero_chan(img_full_rss))
+        with span("san.loss"):
+            lf = loss_gan(pred_fake, real=False, D_loss=True)
+            lr = loss_gan(pred_real, real=True, D_loss=True)
+            return (lf + lr) * self.cfg.weight_gan, lf, lr
 
     def _step_grads(self, env, regime, params, shard=None):
-        """One (micro-)batch's gradients {net: [grad a param]} and losses
-        (`shard`: `_forward_TGR`'s). The G-phase differentiates the nets
-        of `params` but net_D (net_D's weights get nothing from it, as in
-        the JAX step); the D-phase, in the GAN regimes, net_D alone."""
+        """One (micro-)batch's gradients {net: [grad a param]} and losses,
+        detached (`shard`: `_forward_TGR`'s). The G-phase differentiates
+        the nets of `params` but net_D (net_D's weights get nothing from
+        it, as in the JAX step); the D-phase, in the GAN regimes, net_D
+        alone. The step's graph is freed on return, inside `san.update`."""
         names = [name for name in params if name != "net_D"]
         total, losses, aligned = self._regime_loss(env, regime, shard)
         flat = [p for name in names for p in params[name]]
-        grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
+        with span("san.backward"):
+            grads = iter(torch.autograd.grad(total, flat, allow_unused=True))
         out = {name: [next(grads) for _ in params[name]] for name in names}
         if aligned is not None:
             d_total, losses["loss_gan_Dfake"], losses["loss_gan_Dreal"] = (
                 self._d_phase_loss(aligned, env["img_full_rss"]))
-            out["net_D"] = list(torch.autograd.grad(d_total, params["net_D"]))
+            with span("san.backward"):
+                out["net_D"] = list(torch.autograd.grad(d_total, params["net_D"]))
         for name in out:  # a parameter the loss does not reach: zero, as jax.grad
             out[name] = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(params[name], out[name])]
-        return out, losses
+        return out, {k: v.detach() for k, v in losses.items()}
 
     @staticmethod
     def _micro_rows(n, accum, gan):
@@ -864,54 +889,56 @@ class CSModel:
         from the model's generator (seeded by seed + 1). On a distributed
         model the batch is this rank's rows, `draws` the global batch's
         (the same on every rank), and the step the global batch's."""
-        regime = self.cfg.reg
-        accum = int(self.cfg.get("grad_accum", 1))
-        total, offset, counts = self._check_step(regime, accum)
-        gan = regime in GAN_REGIMES
-        # the JAX package's condition (its csmodel.py:591)
-        learn = self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False))
-        names = GRAD_NETS[regime] + (("net_mask",) if learn and regime in MASK_REGIMES else ())
-        names += ("net_D",) if gan else ()
-        params = {name: list(getattr(self, name).parameters()) for name in names}
-        if learn:
-            soft_thresh, hard_thresh = self._mask_draws(total, draws)
-        elif draws is not None:
-            raise ValueError("mask draws given, but the step learns no mask")
-        plan, sharded = self._plan(total, offset, counts, accum, gan)
-        self._nets_mode(train=True)
-        sn_start = ([(m.weight_u.clone(), m.weight_v.clone()) for m in self._spectral_convs()]
-                    if accum > 1 else None)
-        sums, step_losses = None, []
-        self._sync_bn(sharded)
-        try:
-            for full, aux, rows, shard in plan:
-                if sn_start is not None:  # each micro-batch from the step's u, v
-                    for m, (u, v) in zip(self._spectral_convs(), sn_start):
-                        m.weight_u.copy_(u)
-                        m.weight_v.copy_(v)
-                soft = None
-                if learn:
-                    thresh = soft_thresh[torch.as_tensor(rows, device=self.device)]
-                    soft = self._loupe_sample(len(rows), True, thresh)[0]
-                grads, losses = self._step_grads(self._prepare(full, aux, self.pruned, soft),
-                                                 regime, params, shard)
-                step_losses.append({k: v.detach() for k, v in losses.items()})
-                sums = grads if sums is None else {
-                    name: [a + b for a, b in zip(sums[name], grads[name])] for name in sums}
-        finally:
-            self._sync_bn(False)
-        self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
-                     for k in step_losses[0]}
-        if self.mesh is not None:  # XLA's psum: the global batch's gradients and losses
-            mesh_lib.all_reduce_mean(
-                self.mesh, [g for name in names for g in sums[name]] + list(self._aux.values()))
-        for name in names:
-            for p, g in zip(params[name], sums[name]):
-                p.grad = g / accum if accum > 1 else g
-            self.opt[name].step()
-        if learn:  # the next step's data-consistency mask
-            with torch.no_grad():
-                self.pruned = self._loupe_sample(1, False, hard_thresh)[1]
+        with span("san.update"):
+            regime = self.cfg.reg
+            accum = int(self.cfg.get("grad_accum", 1))
+            total, offset, counts = self._check_step(regime, accum)
+            gan = regime in GAN_REGIMES
+            # the JAX package's condition (its csmodel.py:591)
+            learn = self.cfg.get("mask") == "loupe" and bool(self.cfg.get("learn_mask", False))
+            names = GRAD_NETS[regime] + (("net_mask",) if learn and regime in MASK_REGIMES else ())
+            names += ("net_D",) if gan else ()
+            params = {name: list(getattr(self, name).parameters()) for name in names}
+            if learn:
+                soft_thresh, hard_thresh = self._mask_draws(total, draws)
+            elif draws is not None:
+                raise ValueError("mask draws given, but the step learns no mask")
+            plan, sharded = self._plan(total, offset, counts, accum, gan)
+            self._nets_mode(train=True)
+            sn_start = ([(m.weight_u.clone(), m.weight_v.clone()) for m in self._spectral_convs()]
+                        if accum > 1 else None)
+            sums, step_losses = None, []
+            self._sync_bn(sharded)
+            try:
+                for full, aux, rows, shard in plan:
+                    if sn_start is not None:  # each micro-batch from the step's u, v
+                        for m, (u, v) in zip(self._spectral_convs(), sn_start):
+                            m.weight_u.copy_(u)
+                            m.weight_v.copy_(v)
+                    soft = None
+                    if learn:
+                        thresh = soft_thresh[torch.as_tensor(rows, device=self.device)]
+                        soft = self._loupe_sample(len(rows), True, thresh)[0]
+                    grads, losses = self._step_grads(self._prepare(full, aux, self.pruned, soft),
+                                                     regime, params, shard)
+                    step_losses.append(losses)
+                    sums = grads if sums is None else {
+                        name: [a + b for a, b in zip(sums[name], grads[name])] for name in sums}
+            finally:
+                self._sync_bn(False)
+            self._aux = {k: torch.stack([sl[k] for sl in step_losses]).mean()
+                         for k in step_losses[0]}
+            if self.mesh is not None:  # XLA's psum: the global batch's gradients and losses
+                mesh_lib.all_reduce_mean(
+                    self.mesh, [g for name in names for g in sums[name]] + list(self._aux.values()))
+            with span("san.optimizer"):
+                for name in names:
+                    for p, g in zip(params[name], sums[name]):
+                        p.grad = g / accum if accum > 1 else g
+                    self.opt[name].step()
+            if learn:  # the next step's data-consistency mask
+                with torch.no_grad():
+                    self.pruned = self._loupe_sample(1, False, hard_thresh)[1]
 
     # ------------------------------------------------------------- pruning
     def taylor_step(self):

@@ -76,6 +76,7 @@ from ..data.loader import Loader, Prefetch, device_prefetch
 from ..data.paired_dataset import ConcatDataset, get_paired_volume_datasets
 from ..ops.crop import center_crop
 from ..parallel import mesh as mesh_lib
+from ..utils.trace import span
 from ..utils.visualize import save_image
 from .config import Config
 from .csmodel import MATMUL_PRECISIONS, CSModel, f32_precision, resolve_device
@@ -322,8 +323,22 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
             break
         # ------------------------------------------------------- training
         t0, steps = time.perf_counter(), 0
-        for batch in device_prefetch(iter(loader_train), device):
-            if signal_end:
+        batches = device_prefetch(iter(loader_train), device)
+        while True:
+            # --trace_at traces the whole iteration: the wait for its
+            # batch, augmentation, the step and pruning
+            prof = None
+            if args.trace_at and iter_cnt + 1 == args.trace_at:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if is_cuda:
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            with span("san.data_wait"):
+                batch = next(batches, None)
+            if batch is None:  # the epoch's end: the traced iteration is the next epoch's first
+                if prof is not None:
+                    prof.stop()
                 break
             net.train()
             time_data = time.time() - time_start
@@ -332,13 +347,6 @@ def run(net, slices_train, slices_val, args, writer=None, iter_cnt=0):
             draws = draw_augmentation(args.aux_aug, gen, batch[0].shape[0], len(batch), device)
             batch = [center_crop(x, (cfg.shape, cfg.shape))
                      for x in augment.augment_batch(args.aux_aug, batch, draws)]
-            prof = None
-            if args.trace_at and iter_cnt == args.trace_at:
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if is_cuda:
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=activities)
-                prof.start()
             net.set_input(*batch)
             net.update()
             if prune_every > 0:
@@ -568,8 +576,9 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=None,
                         help="seed loader shuffling and augmentation RNG")
     parser.add_argument("--trace_at", type=int, default=0, metavar="N",
-                        help="write a torch.profiler trace of iteration N "
-                             "under logdir/trace")
+                        help="write a torch.profiler trace of all of iteration N "
+                             "(the wait for its batch, augmentation, the step, "
+                             "pruning) under logdir/trace")
     parser.add_argument("--save_opt", action="store_true",
                         help="include optimizer state in checkpoints")
     parser.add_argument("--dist_coordinator", type=str, default=None, metavar="HOST:PORT",

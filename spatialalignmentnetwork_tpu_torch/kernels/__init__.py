@@ -9,6 +9,8 @@ import every module on machines without `nvcc` or a card.
 
 `LAUNCHES` counts each kernel's launches (one per wrapper call that
 launches it), so a caller can show that a path went through its kernels.
+Each `nvcc` run's host seconds go to `utils/trace.py`'s SETUP as
+"kernel_build.<source>".
 `on_card` picks the route for a tensor: its kernel on a CUDA tensor, its
 plain PyTorch version on a CPU tensor, nothing else. `fwd_rows` and
 `fwd_tiles` give the window losses' forward tile (`csrc/window.cuh`), from
@@ -23,6 +25,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+from ..utils.trace import setup_timer
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -160,10 +164,11 @@ def build(source: str) -> tuple:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+        with setup_timer(f"kernel_build.{source}"):
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                capture_output=True, text=True,
+            )
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed on {source} (rc {proc.returncode}):\n"
