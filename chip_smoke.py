@@ -360,6 +360,16 @@ MASK_SPARSITY = 0.25
 # backward to a per-line k-space multiplier, which reaches net_T's input
 # and the grid (d_grid) and the SSIM loss; no weight gradient
 TAYLOR_LAUNCHES = dict(REC_LAUNCHES)
+# The nets' conv route (models/layers.py::Conv3x3): on a card in true f32
+# every 3x3 conv of net_R's ConvBlocks launches ROUTE once a forward (at
+# SHAPE every U-Net plane is even, so none is left to cuDNN). An update's
+# backward launches it once more for each such conv whose input needs a
+# gradient: all but the sensitivity net's first, whose input is the
+# masked k-space, unless the step differentiates the mask (a learned
+# LOUPE mask, the Taylor step); net_R_remat runs the cascades' forwards
+# again in the backward. bf16, TF32 and the CPU launch neither ROUTE nor
+# conv3x3_bf16.
+ROUTE = "conv3x3"
 TAYLOR_BATCHES = 3
 TAYLOR_PRUNE = 8
 # the Taylor saliency (the mean over TAYLOR_BATCHES) on the card against
@@ -1564,10 +1574,11 @@ def check_serving(rng, device="cuda", shape=SHAPE, batch=BATCH):
         f"per request, {slices_per_s:.2f} slices/s; launches {launches}")
     if is_cuda:
         log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        if launches.get("grid_sample_fwd", 0) != n_req:
-            raise AssertionError(
-                f"grid_sample kernel launched {launches} times for {n_req} requests"
-            )
+        want = add_counts({"grid_sample_fwd": n_req},
+                          route_launches(model.net_R, forwards=n_req))
+        if launches != want:
+            raise AssertionError(f"serving launches {launches} for {n_req} requests, "
+                                 f"expected {want}")
 
     # slice 0 of the first request against the same port on the CPU
     ref_model = CSModel(cfg=cfg, device="cpu", seed=0)
@@ -1619,6 +1630,19 @@ def add_counts(*counts):
 
 def scaled(counts, n):
     return {k: v * n for k, v in counts.items()}
+
+
+def route_launches(net_R, forwards=0, steps=0, through_mask=False, remat=False):
+    """The conv route's launch counts ({ROUTE: n}) on a card in true f32:
+    `forwards` passes of `net_R` without gradients and `steps` updates
+    through it, their mask differentiated with `through_mask`, with
+    net_R_remat `remat` (see ROUTE)."""
+    from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3
+
+    convs = sum(isinstance(m, Conv3x3) for m in net_R.modules())
+    cascades = sum(isinstance(m, Conv3x3) for m in net_R.cascades.modules())
+    step = 2 * convs - (0 if through_mask else 1) + (cascades if remat else 0)
+    return add_counts({ROUTE: convs * forwards + step * steps})
 
 
 def augmented_batch(full, aux, gen, device, shape):
@@ -1714,7 +1738,7 @@ def check_train(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     if model.device.type == "cuda":
         log(f"train peak device memory: "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        want = scaled(REC_LAUNCHES, steps)
+        want = add_counts(scaled(REC_LAUNCHES, steps), route_launches(model.net_R, steps=steps))
         if launches != want:  # grid_sample_bwd_dimg: |aux| needs no gradient
             raise AssertionError(f"train launches {launches}, expected {want}")
     moved = [float((p.detach() - b).abs().max())
@@ -1808,7 +1832,8 @@ def check_mixed(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     if model.device.type == "cuda":
         log(f"Mixed train peak device memory: "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        want = scaled(add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), steps)
+        want = add_counts(scaled(add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), steps),
+                          route_launches(model.net_R, steps=steps))
         if launches != want:
             raise AssertionError(f"Mixed launches {launches}, expected {want}")
     moved, still = {}, {}
@@ -1834,11 +1859,13 @@ def check_gan_only_and_accum(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH)
     from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
 
     out = {}
-    for label, cfg, want in (
-            ("GAN-Only", mixed_cfg(shape, reg="GAN-Only"), GAN_ONLY_LAUNCHES),
+    # a GAN-Only update runs no net_R; grad_accum 2 runs it on each half
+    for label, cfg, want, r_steps in (
+            ("GAN-Only", mixed_cfg(shape, reg="GAN-Only"), GAN_ONLY_LAUNCHES, 0),
             ("Mixed grad_accum 2", mixed_cfg(shape, grad_accum=2),
-             scaled(MIXED_LAUNCHES, 2))):
+             scaled(MIXED_LAUNCHES, 2), 2)):
         model = CSModel(cfg=cfg, device=device, seed=0)
+        want = add_counts(want, route_launches(model.net_R, steps=r_steps))
         model.load_entries(random_entries(model, rng))
         warm, step = phantoms(rng, batch, shape), phantoms(rng, batch, shape)
         model.set_input(*warm)
@@ -2158,7 +2185,8 @@ def check_eval(rng, device="cuda", shape=SHAPE, slices=EVAL_SLICES, bucket=EVAL_
         f"{ {k: v / len(volumes) for k, v in launches.items()} } a volume")
     if is_cuda:
         log(f"eval peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        want = scaled(EVAL_LAUNCHES, len(volumes))
+        want = add_counts(scaled(EVAL_LAUNCHES, len(volumes)),
+                          route_launches(model.net_R, forwards=len(volumes)))
         if launches != want:
             raise AssertionError(f"eval launches {launches}, expected {want}")
         alone = []
@@ -2224,8 +2252,10 @@ def eval_at_precision(volume, bucket, level, entries=None, **model):
     the eval CLI builds its model at `--matmul_precision level` (`model`:
     CSModel's other arguments; `entries` loaded into it where given), then
     the CLI's return to f32 at its end. Fails unless both TF32 switches
-    were as `level` asks in every net_R forward and are off after. Returns
-    the volume's scalars."""
+    were as `level` asks in every net_R forward and are off after, and on
+    a card unless the volume launched EVAL_LAUNCHES and the conv route's
+    count (none under TF32). Returns the volume's scalars."""
+    from spatialalignmentnetwork_tpu_torch import kernels
     from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel, f32_precision
     from spatialalignmentnetwork_tpu_torch.engine.eval import evaluate
 
@@ -2235,11 +2265,13 @@ def eval_at_precision(volume, bucket, level, entries=None, **model):
     net.eval()
     seen = []
     hook = net.net_R.register_forward_pre_hook(lambda *_: seen.append(tf32_switches()))
+    kernels.reset_launches()
     try:
         stats = evaluate(net, [volume], bucket)[0]
     finally:
         hook.remove()
         f32_precision()
+    launches = dict(kernels.LAUNCHES)
     tf32 = level in ("default", "high")
     if not seen or set(seen) != {(tf32, tf32)}:
         raise AssertionError(f"--matmul_precision {level}: TF32 switches {set(seen)} in the "
@@ -2247,6 +2279,9 @@ def eval_at_precision(volume, bucket, level, entries=None, **model):
     if tf32_switches() != (False, False):
         raise AssertionError(f"--matmul_precision {level}: TF32 switches {tf32_switches()} "
                              "after the eval, expected both off")
+    want = add_counts(EVAL_LAUNCHES, route_launches(net.net_R, forwards=0 if tf32 else 1))
+    if net.device.type == "cuda" and launches != want:
+        raise AssertionError(f"--matmul_precision {level}: launches {launches}, expected {want}")
     return stats
 
 
@@ -2390,7 +2425,9 @@ def check_train_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scal
                 raise AssertionError(f"train CLI {name}: iterations {iter_cnt} -> "
                                      f"{rec['iter_cnt']}, {steps} steps expected")
             want = add_counts(scaled(add_counts(STEP_LAUNCHES[reg], PBSPLINE_LAUNCHES), steps),
-                              scaled(EVAL_LAUNCHES, val_batches))
+                              scaled(EVAL_LAUNCHES, val_batches),
+                              route_launches(net.net_R, forwards=val_batches,
+                                             steps=0 if reg == "GAN-Only" else steps))
             log(f"train CLI {name} (--reg {reg}, ref {ref}"
                 + (f", --load_nets {' '.join(nets)} from {source}" if nets else "")
                 + (f", --resume '' at {iter_cnt}" if resumes else "")
@@ -2418,8 +2455,10 @@ def check_train_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scal
         if len(stats) != CLI_VOLUMES or not all(
                 np.isfinite(v) for s in stats for v in s.values()):
             raise AssertionError(f"eval of the trained best.pt: {stats}")
-        if is_cuda and got != scaled(EVAL_LAUNCHES, CLI_VOLUMES):
-            raise AssertionError(f"eval of the trained best.pt: launches {got}")
+        want = add_counts(scaled(EVAL_LAUNCHES, CLI_VOLUMES),
+                          route_launches(model.net_R, forwards=CLI_VOLUMES))
+        if is_cuda and got != want:
+            raise AssertionError(f"eval of the trained best.pt: launches {got}, expected {want}")
     finally:
         train.SCALARS_EVERY = every
         shutil.rmtree(root, ignore_errors=True)
@@ -2532,7 +2571,8 @@ def check_loupe(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
     if is_cuda:
         log(f"LOUPE Rec train peak device memory: "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-        want = scaled(REC_LAUNCHES, len(batches))
+        want = add_counts(scaled(REC_LAUNCHES, len(batches)),
+                          route_launches(model.net_R, steps=len(batches), through_mask=True))
         if launches != want:
             raise AssertionError(f"LOUPE Rec launches {launches}, expected {want}")
     out = [launches]
@@ -2541,6 +2581,7 @@ def check_loupe(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH):
         model = CSModel(cfg=mask_cfg(shape, reg), device=device, seed=0)
         model.load_entries(entries)
         model.set_input(*phantoms(rng, batch, shape))
+        want = add_counts(want, route_launches(model.net_R, steps=1, through_mask=True))
         before = model.net_mask.weight.detach().clone()
         if is_cuda:
             torch.cuda.synchronize()
@@ -2646,9 +2687,10 @@ def check_taylor(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, num=TAYLOR_
                              f"more than twice the saliency's error")
     if moved:
         raise AssertionError(f"taylor_step moved net_T's statistics {moved[:3]}")
-    if is_cuda and launches != scaled(TAYLOR_LAUNCHES, TAYLOR_BATCHES):
-        raise AssertionError(f"Taylor launches {launches}, expected "
-                             f"{scaled(TAYLOR_LAUNCHES, TAYLOR_BATCHES)}")
+    want = add_counts(scaled(TAYLOR_LAUNCHES, TAYLOR_BATCHES),
+                      route_launches(model.net_R, steps=TAYLOR_BATCHES, through_mask=True))
+    if is_cuda and launches != want:
+        raise AssertionError(f"Taylor launches {launches}, expected {want}")
     return launches
 
 
@@ -2713,7 +2755,11 @@ def check_mask_cli(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scale
             if not all(np.isfinite(v) for t, _, v in rec["scalars"] if t != "val/loss_gan_sim"):
                 faults.append("a non-finite logged scalar")
             want = add_counts(scaled(add_counts(step_launches, PBSPLINE_LAUNCHES), steps),
-                              scaled(EVAL_LAUNCHES, val_batches))
+                              scaled(EVAL_LAUNCHES, val_batches),
+                              route_launches(net.net_R, forwards=val_batches, steps=steps,
+                                             through_mask=mask == "loupe"),
+                              route_launches(net.net_R, steps=steps if mask == "taylor" else 0,
+                                             through_mask=True))
             if is_cuda and got != want:
                 faults.append(f"launches {got}, expected {want}")
             log(f"train CLI --mask {mask} {' '.join(extra)} --reg {reg} on {net.device}: "
@@ -3006,7 +3052,7 @@ def serve_bf16(rng, entries, device, shape, batch, widths=None):
         f"{err:.4g} (bar {bar:.4g}), vs the CPU's f32 {err32:.4g}, the CPU's bf16 vs its "
         f"f32 {own:.4g}")
     MEASURED["bf16_serving_slices_s"] = TIMED_REQUESTS * batch / secs
-    if is_cuda and launches.get("grid_sample_fwd", 0) != len(requests):
+    if is_cuda and launches != {"grid_sample_fwd": len(requests)}:
         raise AssertionError(f"bf16 serving launches {launches}")
     if not err <= bar:
         raise AssertionError("bf16 serving: the card's slice 0 is off the CPU's")
@@ -3116,8 +3162,10 @@ def remat_f32(rng, entries, device, shape, batch, widths=None):
         res[remat] = (secs * 1e3 / TIMED_STEPS, peak_mib() if is_cuda else 0.0)
         MEASURED[f"f32_rec_remat_{remat}"] = res[remat]
         counts.append(launches)
-        if is_cuda and launches != scaled(REC_LAUNCHES, len(batches)):
-            raise AssertionError(f"f32 Rec (remat {remat}) launches {launches}")
+        want = add_counts(scaled(REC_LAUNCHES, len(batches)),
+                          route_launches(model.net_R, steps=len(batches), remat=remat))
+        if is_cuda and launches != want:
+            raise AssertionError(f"f32 Rec (remat {remat}) launches {launches}, expected {want}")
         del model
         free_card()
     err = grad_error(grads[True], {n: {k: g.double() for k, g in leaves.items()}
@@ -3774,9 +3822,14 @@ def check_parallel(rng, device="cuda", shape=SHAPE, batch=TRAIN_BATCH, net_scale
     model = CSModel(cfg=p["cfg"]["Mixed"], device="cpu", seed=0)
     noise = bn_followed_biases(model)
     lr = float(model.cfg.lr)
-    want_launches = {"Rec": scaled(REC_LAUNCHES, PAR_STEPS),
-                     "Mixed": scaled(add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), PAR_STEPS),
-                     "eval": scaled(EVAL_LAUNCHES, len(p["volumes"]))}
+    # each rank runs net_R on its rows: the conv route's count of one process
+    want_launches = {
+        "Rec": add_counts(scaled(REC_LAUNCHES, PAR_STEPS),
+                          route_launches(model.net_R, steps=PAR_STEPS)),
+        "Mixed": add_counts(scaled(add_counts(MIXED_LAUNCHES, PBSPLINE_LAUNCHES), PAR_STEPS),
+                            route_launches(model.net_R, steps=PAR_STEPS)),
+        "eval": add_counts(scaled(EVAL_LAUNCHES, len(p["volumes"])),
+                           route_launches(model.net_R, forwards=len(p["volumes"])))}
     for reg in ("Rec", "Mixed"):
         got, want = ranks[0][reg], alone[reg]
         fails, worst = dp_failures(got["entries"], want["entries"], PAR_STEPS, lr, noise)
@@ -3850,6 +3903,7 @@ BUILD_CHECKED = (*HMMA, "lncc.cu", "ssim.cu", "grid_sample.cu")
 
 # --------------------------------------------------- phase 16: library and tooling
 EXPORT_OP = "san.grid_sample_fwd.default"
+EXPORT_CONV_OP = "san.conv3x3.default"
 # the replay against the live path: the same aten operations and kernel on
 # the same inputs (as the examples' rtol 1e-5, atol 1e-6), atol a fraction
 # of max |live|
@@ -3918,9 +3972,11 @@ def check_export(rng):
          exported at BATCH
          (`engine/export.py`) and reloaded from the bytes; its graph holds
          the custom op `san::grid_sample_fwd` once and no aten grid
-         sampler; the replay against live `reconstruct` within EXPORT_RTOL
-         and EXPORT_ATOL_REL x max|live|; one replayed call launches
-         grid_sample_fwd once (counts reset just before, read just after);
+         sampler, and the conv route's `san::conv3x3` once for each
+         ConvBlock conv of net_R; the replay against live `reconstruct`
+         within EXPORT_RTOL and EXPORT_ATOL_REL x max|live|; one replayed
+         call launches grid_sample_fwd once and ROUTE once a ConvBlock
+         conv (counts reset just before, read just after);
          the export's seconds, the artifact's bytes and ms a request of the
          replay beside live's (CUDA events, TIMED after WARMUP requests);
       b. examples/torch_serve.py --resume on a's model saved, in a fresh
@@ -3929,10 +3985,11 @@ def check_export(rng):
          the four nets' parameter counts those of the same nets on the CPU,
          their counted FLOPs `analytic_flops` of `utils/flops.py`; `trace`
          around one `reconstruct` writes a trace naming the forward kernel
-         (launches counted as in a);
+         and launches as a's replayed call;
       d. the allocator: the host lock must be free; a subprocess takes
          `auto_gpu(<this process's first visible card>, exclusive=True)`
-         and reconstructs, seeing that one card (its report awaited at
+         and reconstructs, seeing that one card and launching as a's
+         replayed call (its report awaited at
          most AUTOGPU_HOLDER_S); a second subprocess's non-blocking
          `Locker.acquire` fails while the first holds the lock, and this
          process's succeeds after.
@@ -3965,6 +4022,8 @@ def check_export(rng):
         model.load_entries(random_entries(model, rng))
         full, aux = (torch.as_tensor(x, device=model.device)
                      for x in phantoms(rng, batch, shape))
+        # a request's launches: the warp and, in true f32, the conv route
+        request = add_counts({"grid_sample_fwd": 1}, route_launches(model.net_R, forwards=1))
         t0 = time.perf_counter()
         blob = export_reconstruct(model, tuple(full.shape))
         export_s = time.perf_counter() - t0
@@ -3975,6 +4034,10 @@ def check_export(rng):
         if targets.count(EXPORT_OP) != 1 or [t for t in targets if "grid_sampler" in t]:
             raise AssertionError(f"the exported graph samples through "
                                  f"{[t for t in targets if 'grid' in t]}")
+        if targets.count(EXPORT_CONV_OP) != request[ROUTE]:
+            raise AssertionError(f"the exported graph holds {targets.count(EXPORT_CONV_OP)} "
+                                 f"{EXPORT_CONV_OP} nodes, net_R {request[ROUTE]} ConvBlock "
+                                 f"convs")
         live = model.reconstruct(full, aux)
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -3982,8 +4045,8 @@ def check_export(rng):
             got = replay(full, aux)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        if launches != {"grid_sample_fwd": 1}:
-            raise AssertionError(f"one replayed request launched {launches}")
+        if launches != request:
+            raise AssertionError(f"one replayed request launched {launches}, expected {request}")
         counts = add_counts(counts, launches)
         scale = float(live.abs().max())
         err = float((got - live).abs().max())
@@ -3992,7 +4055,8 @@ def check_export(rng):
         replay_ms = time_requests(replay, full, aux)
         log(f"export on {model.device}: [{batch},1,{shape},{shape}] traced and serialized "
             f"in {export_s:.2f} s, {len(blob)} bytes, reloaded in {load_s:.2f} s; "
-            f"{targets.count(EXPORT_OP)} {EXPORT_OP} node of {len(targets)} calls; replay vs live max|diff| {err:.3g} (max|live| "
+            f"{targets.count(EXPORT_OP)} {EXPORT_OP} node and {targets.count(EXPORT_CONV_OP)} "
+            f"{EXPORT_CONV_OP} of {len(targets)} calls; replay vs live max|diff| {err:.3g} (max|live| "
             f"{scale:.4g}); one replayed request launched {launches}; ms a request: "
             f"replay {replay_ms:.3f}, live {live_ms:.3f} ({replay_ms / live_ms:.4f}x)")
         MEASURED["export"] = {"replay_ms": replay_ms, "live_ms": live_ms, "bytes": len(blob),
@@ -4031,6 +4095,8 @@ def check_export(rng):
             model.reconstruct(full, aux)
             torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
+        if launches != request:
+            raise AssertionError(f"the traced request launched {launches}, expected {request}")
         counts = add_counts(counts, launches)
         (name,) = os.listdir(logdir)
         with open(os.path.join(logdir, name)) as f:
@@ -4078,7 +4144,7 @@ def check_export(rng):
                 holder.kill()
                 holder.wait()
         if (not held["finite"] or held["visible"] != card or held["count"] != 1
-                or held["launches"] != {"grid_sample_fwd": 1}):
+                or held["launches"] != request):
             raise AssertionError(f"under auto_gpu: {held}")
         if not mine.acquire(blocking=False):
             raise AssertionError(f"{lock_path} stayed locked after its holder exited")
@@ -4192,19 +4258,23 @@ def check_conv(rng):
 
 def check_conv_ladder(rng, device="cuda", shape=SHAPE, batch=BATCH):
     """`conv3x3_s2d` forward and backward in f32, and forward in bf16, on
-    every distinct conv of the ladder, held to float64; returns the launch
-    counts of that run. (The CPU tests run it at a small plane on the CPU,
-    where no kernel launches.)"""
+    every distinct conv of the ladder, held to float64, the library's f32
+    forward (TF32 off) beside it as information: the error of the true f32
+    conv that the nets' route replaces; returns the launch counts of that
+    run. (The CPU tests run it at a small plane on the CPU, where no kernel
+    launches.)"""
     import torch
+    import torch.nn.functional as F
 
     from spatialalignmentnetwork_tpu_torch import kernels
     from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+    from spatialalignmentnetwork_tpu_torch.ops.window import f32_convs
 
     dev = torch.device(device)
     is_cuda = dev.type == "cuda"
     gen = torch.Generator(dev).manual_seed(int(rng.integers(2**31)))
     shapes = conv_ladder(shape)
-    worst = {"out": 0.0, "dx": 0.0, "dW": 0.0, "bf16 out": 0.0}
+    worst = {"out": 0.0, "dx": 0.0, "dW": 0.0, "bf16 out": 0.0, "library f32 out": 0.0}
     kernels.reset_launches()
     for net, h, cin, cout in shapes:
         before = kernels.LAUNCHES[kconv.NAME]
@@ -4233,10 +4303,14 @@ def check_conv_ladder(rng, device="cuda", shape=SHAPE, batch=BATCH):
         wantb = kconv.conv3x3_plain(xb.double(), wb.double())
         scale_b = float(wantb.abs().max())
         wantb = wantb.bfloat16().double()
+        with f32_convs():
+            lib = F.conv2d(x.detach().permute(0, 3, 1, 2), w3.detach().permute(3, 2, 0, 1),
+                           padding=1).permute(0, 2, 3, 1)
         rel = {"out": rel_err(out.detach().double(), want.detach()),
                "dx": rel_err(x.grad.double(), x64.grad),
                "dW": rel_err(w3.grad.double(), w64.grad),
-               "bf16 out": rel_err(outb.double(), wantb)}
+               "bf16 out": rel_err(outb.double(), wantb),
+               "library f32 out": rel_err(lib.double(), want.detach())}
         if not (rel["out"] <= CONV_TOL and rel["dx"] <= CONV_TOL
                 and rel["dW"] <= CONV_DW_TOL and bf16_close(outb.double(), wantb, scale_b)):
             raise AssertionError(f"conv {net} [{batch},{h},{h},{cin}]->{cout} against "
@@ -4245,7 +4319,8 @@ def check_conv_ladder(rng, device="cuda", shape=SHAPE, batch=BATCH):
     launches = dict(kernels.LAUNCHES)
     log(f"conv ladder on {device}: {len(shapes)} shapes at batch {batch}, "
         f"{shape}x{shape}; worst max|diff|/max|float64| {worst} (tol {CONV_TOL}, "
-        f"dW {CONV_DW_TOL}, bf16 one ulp beside it); launches {launches}")
+        f"dW {CONV_DW_TOL}, bf16 one ulp beside it; the library's f32 forward not "
+        f"held); launches {launches}")
     if is_cuda:
         want_launches = {kconv.NAME: 2 * len(shapes), kconv.NAME_BF16: len(shapes)}
         if launches != want_launches:
@@ -4695,12 +4770,15 @@ def main():
         # parallelism and the exported serving program are the main paths
         # (d_img runs on the Mixed ones, and on its own); the
         # loss kernels run on the registration-loss library's entry points,
-        # the conv on its own entry point's ladder
+        # the f32 conv on its entry point's ladder and, as the nets' conv
+        # route, on the main paths, the bf16 conv on the ladder alone
         if e["name"] == "grid_sample_bwd_dimg":
             paths = [autograd, mixed, cli, masks, precision, parallel]
         elif e["name"] in ("lncc_fwd", "lncc_bwd", "mi_fwd", "mi_bwd"):
             paths = [registration]
-        elif e["name"] in ("conv3x3", "conv3x3_bf16"):
+        elif e["name"] == ROUTE:
+            paths = [ladder, *main_paths]
+        elif e["name"] == "conv3x3_bf16":
             paths = [ladder]
         else:
             paths = main_paths

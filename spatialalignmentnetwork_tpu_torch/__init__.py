@@ -18,7 +18,9 @@ Layout:
                the paired h5 volume datasets
     utils/     the eval metrics, on tensors (`metrics_torch`) and in numpy
     kernels/   ctypes bindings of the CUDA kernels, launch counts; the 3x3
-               conv entry point `kernels.conv.conv3x3_s2d`
+               conv entry point `kernels.conv.conv3x3_s2d` and its op
+               `san::conv3x3`, which net_R's U-Net convs take in true f32
+               on the card
     csrc/      CUDA C++ sources (sm_90a)
     engine/    Config, checkpoints (the JAX package's and the
                reference's layouts), weight carry-over from the JAX

@@ -177,8 +177,13 @@ def set_matmul_precision(level=None):
     JAX level, with JAX's meaning on a GPU: "default" and "high" compute
     them in TF32 (10 mantissa bits), "highest" in true f32. None, no level
     asked for, is the port's own policy, true f32 (`f32_precision`).
-    Process-wide, like the switches themselves; the window ops keep their
-    convs in f32 whatever is set (`ops/window.py::f32_convs`)."""
+    There, on the card, net_R's ConvBlock 3x3 convs run the port's 3xTF32
+    kernel (`models/layers.py::Conv3x3`): each f32 operand split into two
+    TF32 parts, three of the four products taken, summed in f32; held to
+    1e-5 of max against float64 (`chip_smoke.py`'s conv ladder, which logs
+    the library's true f32 error beside it). Process-wide,
+    like the switches themselves; the window ops keep their convs in f32
+    whatever is set (`ops/window.py::f32_convs`)."""
     if level is not None and level not in MATMUL_PRECISIONS:
         raise ValueError(f"matmul precision {level!r} is none of {MATMUL_PRECISIONS}")
     tf32 = level in ("default", "high")

@@ -6,7 +6,9 @@ package's `engine/export.py`).
 weights and the mask's `pruned` inside it: the artifact replays without
 the model's Python code. The grid sample is the custom op
 `san::grid_sample_fwd` (`kernels/grid_sample.py`), one node of the graph,
-so a program exported on the card launches the same CUDA kernel when it
+and in true f32 on the card each ConvBlock conv of net_R is the custom op
+`san::conv3x3` (`kernels/conv.py`, routed by `models/layers.py::Conv3x3`),
+so a program exported on the card launches the same CUDA kernels when it
 replays there; the rest are aten operations.
 
 Usage:
@@ -23,7 +25,7 @@ import io
 import torch
 from torch import nn
 
-from ..kernels import grid_sample  # noqa: F401 (registers san::grid_sample_fwd)
+from ..kernels import conv, grid_sample  # noqa: F401 (register san::conv3x3, san::grid_sample_fwd)
 
 
 class _ReconStep(nn.Module):

@@ -1,6 +1,6 @@
 """3x3 stride-1 SAME convolution (NHWC, no bias) and its input gradient:
 the CUDA kernel of `csrc/conv.cu`, its plain PyTorch version, and the
-autograd Function that joins them.
+custom op with its registered backward that joins them.
 
 Replaces the Pallas TPU kernel of the JAX package's `ops/pallas/conv.py`:
 `_conv3x3_s2d` (:98, pallas_call at :117, body `_conv2x2_valid_kernel`
@@ -17,10 +17,13 @@ design and what bounds each kernel at the VarNet's shapes.
 
 `conv3x3_s2d(x, w3)` takes x [N, H, W, Cin] (f32 or bf16, H and W even)
 and w3 [3, 3, Cin, Cout] (HWIO, cast to x's dtype as the JAX kernel does)
-and returns [N, H, W, Cout] in x's dtype, summed in f32. Its input gradient
-is the same kernel again; its weight gradient is the library's conv
-backward-filter, as JAX leaves it to XLA. Each piece takes the kernel on
-CUDA tensors and the plain version on CPU tensors (`kernels.on_card`).
+and returns [N, H, W, Cout] in x's dtype, summed in f32. It calls the
+custom op `san::conv3x3` (`conv3x3_op`), whose fake implementation lets
+torch.export and FakeTensorMode trace it without touching a pointer. Its
+input gradient is the same op again; its weight gradient is the library's
+conv backward-filter, as JAX leaves it to XLA. Each piece takes the kernel
+on CUDA tensors and the plain version on CPU tensors (`kernels.on_card`).
+`models/layers.py::Conv3x3` routes the U-Nets' f32 3x3 convs through it.
 """
 
 import ctypes
@@ -28,6 +31,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ..ops.window import f32_convs
 from . import launch, load, on_card
@@ -83,7 +87,10 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         dw = torch.nn.grad.conv2d_weight(
             x.float().permute(0, 3, 1, 2), (g.shape[3], x.shape[3], 3, 3),
             g.float().permute(0, 3, 1, 2), padding=1)
-    return dw.permute(2, 3, 1, 0).contiguous()
+    # an HWIO view of the OIHW result made contiguous (channels-last x and
+    # g give a channels-last one): a route's weight, an HWIO view of an
+    # OIHW parameter, then gets its gradient in the parameter's layout
+    return dw.contiguous().permute(2, 3, 1, 0)
 
 
 # ------------------------------------------------------------ CUDA wrapper
@@ -118,39 +125,59 @@ def _launcher():
     return fn
 
 
-# ------------------------------------------------------------ autograd
-class Conv3x3S2D(torch.autograd.Function):
-    """The JAX custom VJP (ops/pallas/conv.py:151-172): the kernel forward
-    and, with the rotated weights, for the input gradient; the library's
-    backward-filter for the weight gradient. Kernel on CUDA tensors, plain
-    version on CPU tensors."""
+# ------------------------------------------------------------ custom op
+@torch.library.custom_op("san::conv3x3", mutates_args=())
+def conv3x3_op(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """The forward as a torch.library op: the kernel on CUDA tensors, the
+    plain version on CPU tensors; x and w3 of one dtype. Tracing
+    (torch.export, FakeTensorMode) reaches `_fake` instead and records the
+    op as one node, so an exported program launches the same kernel when
+    it replays on the card."""
+    fwd = conv3x3_cuda if on_card(x) else conv3x3_plain
+    return fwd(x.contiguous(), w3.contiguous())
 
-    @staticmethod
-    def forward(ctx, x, w3):
-        # each route checks the shapes; the dtypes are the kernel's on both
-        if x.dtype not in DTYPES or w3.dtype not in DTYPES:
-            raise TypeError(f"conv3x3_s2d takes float32 or bfloat16, got {x.dtype} "
-                            f"and {w3.dtype}")
-        ctx.save_for_backward(x, w3)
-        fwd = conv3x3_cuda if on_card(x) else conv3x3_plain
-        return fwd(x.contiguous(), w3.to(x.dtype).contiguous())
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w3 = ctx.saved_tensors
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                "conv3x3_s2d has no backward for bfloat16 x: the JAX reference's "
-                "VJP raises TypeError there (ops/pallas/conv.py:164-171 convolves "
-                "the bfloat16 x with the float32 cotangent)")
-        g = g.to(x.dtype).contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dconv = conv3x3_cuda if on_card(g) else conv3x3_plain
-            dx = dconv(g, rotate(w3.to(x.dtype)))
-        if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, g).to(w3.dtype)
-        return dx, dw
+@conv3x3_op.register_fake
+def _fake(x, w3):
+    """The output's shape and type from the inputs' metadata alone."""
+    check(x, w3)
+    return x.new_empty((*x.shape[:3], w3.shape[3]))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """The JAX custom VJP (ops/pallas/conv.py:151-172): the input gradient
+    is the op again, on the rotated weights; the weight gradient the
+    library's backward-filter."""
+    x, w3 = ctx.saved_tensors
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            "conv3x3_s2d has no backward for bfloat16 x: the JAX reference's "
+            "VJP raises TypeError there (ops/pallas/conv.py:164-171 convolves "
+            "the bfloat16 x with the float32 cotangent)")
+    g = g.to(x.dtype).contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = conv3x3_op(g, rotate(w3))
+    if ctx.needs_input_grad[1]:
+        dw = weight_grad(x, g)
+        if w3.is_contiguous():  # else w3 is a view of an OIHW weight, as dw
+            dw = dw.contiguous()
+    return dx, dw
+
+
+conv3x3_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.san.conv3x3)
+def _flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """What `FlopCounterMode` counts for the op: 2 x N H W x 9 Cin x Cout,
+    as it counts the same conv through aten's convolution."""
+    n, h, w, cin = x_shape
+    return 2 * n * h * w * 9 * cin * w_shape[3]
 
 
 def conv3x3_s2d(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
@@ -163,4 +190,9 @@ def conv3x3_s2d(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     the TPU kernel's space-to-depth decomposition, a 2x2 GEMM over 2x2
     pixel groups that fills the MXU's lanes. The port computes the same
     function directly, as an implicit GEMM on the card."""
-    return Conv3x3S2D.apply(x, w3)
+    if x.dtype not in DTYPES or w3.dtype not in DTYPES:
+        raise TypeError(f"conv3x3_s2d takes float32 or bfloat16, got {x.dtype} "
+                        f"and {w3.dtype}")
+    check(x, w3)
+    on_card(x)  # any other device raises here, before the op records
+    return conv3x3_op(x, w3.to(x.dtype))

@@ -59,7 +59,8 @@ class Unet(nn.Module):
             if pad_w or pad_h:
                 x = F.pad(x, (0, pad_w, 0, pad_h), mode="reflect")
             x = conv(torch.cat([x, skip], dim=1))
-        return x
+        # contiguous NCHW out, whatever layout the routed convs left
+        return x.contiguous()
 
 
 def group_norm_2(x: torch.Tensor, eps: float = 1e-6):

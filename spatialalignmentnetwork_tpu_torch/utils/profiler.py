@@ -68,8 +68,9 @@ def measure(fn, args, repeat=50, warmup=3):
 
 def flops_of(fn, *args):
     """FLOPs of one call fn(*args) as PyTorch's operators count them
-    (convolutions and matmuls; no FFT, no elementwise work, nothing for a
-    hand-written kernel)."""
+    (convolutions and matmuls; no FFT, no elementwise work; of the
+    hand-written kernels only the nets' conv route, `san::conv3x3`, whose
+    formula `kernels/conv.py` registers)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:

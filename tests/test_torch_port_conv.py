@@ -20,11 +20,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from spatialalignmentnetwork_tpu.ops.pallas.conv import conv3x3_s2d as jconv
 
 from spatialalignmentnetwork_tpu_torch import kernels
 from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
+from spatialalignmentnetwork_tpu_torch.models.layers import ConvBlock
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,10 +132,11 @@ def test_odd_height_or_width_is_refused_by_both(hw):
 
 
 def test_mocked_card_route_keeps_the_gradient(monkeypatch):
-    """The card's route through the autograd Function, with the CUDA
+    """The card's route through the custom op `san::conv3x3`, with the CUDA
     wrapper standing in as the plain version: the forward and the input
-    gradient each call the wrapper once, the output keeps the Function as
-    its grad_fn, and the weight gradient is the library's backward-filter,
+    gradient each call the wrapper once, the output keeps the op's
+    registered backward as its grad_fn, and the weight gradient is the
+    library's backward-filter,
     run with cuDNN's TF32 off whatever the caller set."""
     calls = []
 
@@ -156,7 +159,7 @@ def test_mocked_card_route_keeps_the_gradient(monkeypatch):
     tx = torch.from_numpy(x).requires_grad_()
     tk = torch.from_numpy(k).requires_grad_()
     out = kconv.conv3x3_s2d(tx, tk)
-    assert type(out.grad_fn).__name__ == "Conv3x3S2DBackward"
+    assert type(out.grad_fn).__name__ == "GeneratedBackwardFor_san_conv3x3_defaultBackward"
     (out * torch.from_numpy(cot)).sum().backward()
     assert calls == [((2, 8, 12, 3), (3, 3, 3, 5)), ((2, 8, 12, 5), (3, 3, 5, 3))]
     assert tf32_seen == [False] and torch.backends.cudnn.allow_tf32 is True
@@ -413,3 +416,275 @@ def test_chip_smoke_conv_ladder_runs_on_cpu():
     launches = _chip_smoke().check_conv_ladder(np.random.default_rng(0), device="cpu",
                                                shape=32, batch=1)
     assert launches == {}  # CPU tensors take the plain version
+
+
+# ------------------------------------------------------------ the nets' route
+class _OnCard(torch.Tensor):
+    """A CPU tensor that claims to lie on the card: the route and the
+    kernel's wrapper read its `.device`; the stand-ins below compute on the
+    CPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _to_card(module):
+    """`module` with each parameter an `_OnCard` copy of its values."""
+    for m in module.modules():
+        for name, p in list(m._parameters.items()):
+            if p is not None:
+                m._parameters[name] = torch.nn.Parameter(
+                    p.detach().clone().as_subclass(_OnCard), p.requires_grad)
+    return module
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """True f32 on the card for `_OnCard` tensors: cuDNN's TF32 off, the
+    wrapper's output allocated on the CPU as `_OnCard`, its shape checks
+    on the tensors' CPU selves (a copy the op makes inside is a plain
+    tensor), a stand-in stream, and a launcher that records its arguments
+    and returns 0 (the output stays uninitialised: for counting launches,
+    not values)."""
+    launched = []
+    empty = torch.empty
+    check = kconv.check
+
+    def alloc(*shape, device=None, **kw):
+        t = empty(*shape, **kw)
+        return t.as_subclass(_OnCard) if torch.device(device or "cpu").type == "cuda" else t
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch, "empty", alloc)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=1234))
+    monkeypatch.setattr(kconv, "_launcher", lambda: lambda *args: launched.append(args) or 0)
+    monkeypatch.setattr(kconv, "check", lambda x, w3: check(x.as_subclass(torch.Tensor),
+                                                            w3.as_subclass(torch.Tensor)))
+    kernels.reset_launches()
+    yield launched
+    kernels.reset_launches()
+
+
+def test_unet_forward_launches_the_kernel_once_a_conv(card):
+    """On the card in true f32, a U-Net forward (4 pools, the nets' depth)
+    launches the f32 kernel once for each of its 18 ConvBlock convs, on
+    NHWC views (flag 0, f32), and no bf16 kernel. Only the first conv's
+    input is copied to channels-last: each block's second conv reads the
+    first's output through the norm and activation in that layout."""
+    from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3
+    from spatialalignmentnetwork_tpu_torch.models.unet import Unet
+
+    net = _to_card(Unet(3, 2, 4, 4))
+    convs = [m for m in net.modules() if isinstance(m, Conv3x3)]
+    layouts = []
+    for m in convs:
+        m.register_forward_pre_hook(lambda m, i: layouts.append(
+            (m is convs[0], i[0].is_contiguous(memory_format=torch.channels_last))))
+    x = torch.rand((2, 3, 32, 32)).as_subclass(_OnCard)
+    with torch.no_grad():
+        out = net(x)
+    assert tuple(out.shape) == (2, 2, 32, 32) and out.is_contiguous()
+    assert len(convs) == 18 and dict(kernels.LAUNCHES) == {kconv.NAME: 18}
+    assert len(card) == 18 and all(args[8] == 0 for args in card)
+    assert layouts[0] == (True, False)  # the first conv's input: NCHW
+    blocks = [m.layers for m in net.modules() if isinstance(m, ConvBlock)]
+    assert all(b[3] in convs for b in blocks) and len(blocks) == 9
+    seconds = [on for (first, on), m in zip(layouts, convs) if not first
+               and any(b[3] is m for b in blocks)]
+    assert seconds == [True] * 9
+
+
+@pytest.mark.parametrize("case", ["bf16", "tf32", "odd_h", "odd_w", "cpu"])
+def test_route_bypassed_off_its_conditions(card, monkeypatch, case):
+    """bf16 (a compute dtype), cuDNN's TF32 on, an odd H or W, and plain
+    CPU tensors take nn.Conv2d's forward: the same bits as F.conv2d, no
+    launch. On the card in true f32 at even H and W the route engages."""
+    from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3, set_compute_dtype
+
+    conv = Conv3x3(3, 4)
+    weight = conv.weight.detach().clone()
+    x = torch.rand((2, 3, 7 if case == "odd_h" else 8, 5 if case == "odd_w" else 6))
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    want = F.conv2d(x.to(dtype), weight.to(dtype), padding=1)
+    if case != "cpu":
+        conv, x = _to_card(conv), x.as_subclass(_OnCard)
+        assert conv.routed(x[..., :4, :4])  # true f32 on the card, even H and W
+    if case == "bf16":
+        set_compute_dtype(conv, torch.bfloat16)
+    if case == "tf32":
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert not conv.routed(x)
+    with torch.no_grad():
+        got = conv(x)
+    assert got.dtype == dtype and torch.equal(got.as_subclass(torch.Tensor), want)
+    assert not kernels.LAUNCHES and not card
+
+
+def test_routed_norm_unet_matches_nn_conv2d(card, monkeypatch):
+    """A routed NormUnet (the cascade's: a reference channel, 2 pools) on
+    the card, the plain version standing in for the kernel, gives the
+    output and the parameter gradients of the same net on CPU tensors
+    (nn.Conv2d throughout), at f32 tolerance. The forward launches once a
+    conv (10); the backward once more for each conv's input gradient but
+    the first's, whose input needs none (9)."""
+    from spatialalignmentnetwork_tpu_torch.models.unet import NormUnet
+
+    def standin(x, w3):
+        assert x.is_contiguous() and w3.is_contiguous()
+        kernels.check_launch(kconv.NAME, 0)
+        return kconv.conv3x3_plain(x, w3)
+
+    monkeypatch.setattr(kconv, "conv3x3_cuda", standin)
+    # autograd's gradients are plain tensors: the op takes every tensor
+    # for the card's, as the card's own gradients are
+    monkeypatch.setattr(kconv, "on_card", lambda t: True)
+    torch.manual_seed(0)
+    plain = NormUnet(4, 2, use_ref=True)
+    routed = _to_card(NormUnet(4, 2, use_ref=True))
+    routed.load_state_dict(plain.state_dict())
+    rng = np.random.default_rng(35)
+    img = torch.from_numpy((rng.standard_normal((2, 1, 16, 12))
+                            + 1j * rng.standard_normal((2, 1, 16, 12))).astype(np.complex64))
+    ref = torch.from_numpy(rng.random((2, 1, 16, 16)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2, 1, 16, 12, 2)).astype(np.float32))
+    outs = []
+    for net, on in ((plain, lambda t: t), (routed, lambda t: t.as_subclass(_OnCard))):
+        out = net(on(img), on(ref))
+        (torch.view_as_real(out) * on(cot)).sum().backward()
+        outs.append(torch.view_as_real(out).detach().as_subclass(torch.Tensor))
+    assert dict(kernels.LAUNCHES) == {kconv.NAME: 19}
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), **F32)
+    grads = dict(routed.named_parameters())
+    for name, p in plain.named_parameters():
+        w, got = p.grad.numpy(), grads[name].grad.as_subclass(torch.Tensor).numpy()
+        np.testing.assert_allclose(got, w, rtol=GRAD["rtol"],
+                                   atol=GRAD["atol_of_max"] * float(np.abs(w).max()))
+
+
+def test_state_dict_keys_unchanged():
+    """ConvBlock's convs keep nn.Conv2d's parameters under `layers.0` and
+    `layers.3`, so checkpoints and the JAX loader's names read as before."""
+    block = ConvBlock(3, 5)
+    sd = block.state_dict()
+    assert list(sd) == ["layers.0.weight", "layers.3.weight"]
+    assert [tuple(v.shape) for v in sd.values()] == [(5, 3, 3, 3), (5, 5, 3, 3)]
+    plain = torch.nn.Sequential(torch.nn.Conv2d(3, 5, 3, padding=1, bias=False),
+                                torch.nn.Identity(), torch.nn.Identity(),
+                                torch.nn.Conv2d(5, 5, 3, padding=1, bias=False))
+    plain.load_state_dict({k.removeprefix("layers."): v for k, v in sd.items()}, strict=True)
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_flop_counter_counts_the_op_as_aten_counts_the_conv(requires_grad):
+    """`FlopCounterMode` (utils/profiler.py's `flops_of`) counts
+    `san::conv3x3` by its registered formula as it counts the same conv
+    through aten's convolution, forward and, with gradients, backward (the
+    input gradient through the op, the weight gradient through aten)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x, k, _ = _inputs((2, 8, 6, 3, 5), 36)
+    counts = []
+    for run in (lambda a, b: kconv.conv3x3_s2d(a, b),
+                lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), b.permute(3, 2, 0, 1), padding=1)):
+        a = torch.from_numpy(x).requires_grad_(requires_grad)
+        b = torch.from_numpy(k).requires_grad_(requires_grad)
+        with FlopCounterMode(display=False) as counter:
+            out = run(a, b)
+            if requires_grad:
+                out.sum().backward()
+        counts.append(counter.get_total_flops())
+    assert counts[0] == counts[1] == 2 * 2 * 8 * 6 * 9 * 3 * 5 * (3 if requires_grad else 1)
+
+
+def test_hwio_copy_kept_while_no_gradient_is_taken(monkeypatch):
+    """Without a gradient to take, a routed conv's HWIO weight is one copy
+    kept across calls until the weight changes (an in-place write bumps its
+    version) or inference mode is entered; where a gradient is taken the
+    op gets an HWIO view that autograd follows, and the weight's gradient
+    comes back in the weight's own OIHW layout (no layout-contract copy).
+    The route is forced on CPU tensors: the op takes the plain version."""
+    from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3
+
+    monkeypatch.setattr(Conv3x3, "routed", lambda self, x: True)
+    seen = []
+    op = kconv.conv3x3_op
+
+    def spy(x, w3):
+        seen.append(w3)
+        return op(x, w3)
+
+    monkeypatch.setattr("spatialalignmentnetwork_tpu_torch.models.layers.conv3x3_op", spy)
+    torch.manual_seed(0)
+    conv = Conv3x3(3, 4)
+    x = torch.rand((2, 3, 8, 6))
+    with torch.no_grad():
+        a, b = conv(x), conv(x)
+        conv.weight.mul_(2.0)
+        c = conv(x)
+    with torch.inference_mode():
+        d = conv(x)
+    assert seen[0] is seen[1] and seen[2] is not seen[1] and seen[3] is not seen[2]
+    assert all(w.is_contiguous() for w in seen)
+    want = F.conv2d(x, conv.weight.detach(), padding=1)
+    np.testing.assert_allclose(c.numpy(), want.numpy(), **F32)
+    np.testing.assert_allclose(a.numpy(), (want / 2).numpy(), **F32)
+    np.testing.assert_allclose(d.numpy(), want.numpy(), **F32)
+    assert torch.equal(a, b)
+
+    out = conv(x.requires_grad_())
+    assert not seen[4].is_contiguous() and seen[4]._base is conv.weight
+    out.square().sum().backward()
+    assert conv.weight.grad.is_contiguous() and x.grad.shape == x.shape
+    ref = torch.nn.Conv2d(3, 4, 3, padding=1, bias=False)
+    with torch.no_grad():
+        ref.weight.copy_(conv.weight)
+    ref(x.detach()).square().sum().backward()
+    np.testing.assert_allclose(conv.weight.grad.numpy(), ref.weight.grad.numpy(),
+                               rtol=GRAD["rtol"],
+                               atol=GRAD["atol_of_max"] * float(ref.weight.grad.abs().max()))
+
+
+def test_routed_weight_gradient_in_the_weights_layout_from_channels_last(monkeypatch):
+    """A routed conv on a channels-last input (what a routed conv before it
+    hands on): the library's backward-filter then gives a channels-last
+    OIHW gradient, which the route hands back as the parameter's own
+    contiguous layout (the gradient layout contract), equal to nn.Conv2d's
+    gradient. The route is forced on CPU tensors."""
+    from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3
+
+    monkeypatch.setattr(Conv3x3, "routed", lambda self, x: True)
+    torch.manual_seed(1)
+    conv = Conv3x3(5, 6)
+    x = torch.rand((2, 5, 8, 6)).contiguous(memory_format=torch.channels_last)
+    grads = []
+    conv.weight.register_hook(grads.append)
+    conv(x).square().sum().backward()
+    assert grads[0].stride() == conv.weight.stride()
+    assert conv.weight.grad.stride() == conv.weight.stride()
+    ref = torch.nn.Conv2d(5, 6, 3, padding=1, bias=False)
+    with torch.no_grad():
+        ref.weight.copy_(conv.weight)
+    ref(x).square().sum().backward()
+    np.testing.assert_allclose(conv.weight.grad.numpy(), ref.weight.grad.numpy(),
+                               rtol=GRAD["rtol"],
+                               atol=GRAD["atol_of_max"] * float(ref.weight.grad.abs().max()))
+
+
+def test_routed_conv_built_in_inference_mode(monkeypatch):
+    """A conv built in inference mode (the profiler's nets) has an inference
+    tensor as weight, which keeps no version: the route takes the HWIO view
+    each call and keeps no copy. The route is forced on CPU tensors."""
+    from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3
+
+    monkeypatch.setattr(Conv3x3, "routed", lambda self, x: True)
+    torch.manual_seed(2)
+    with torch.inference_mode():
+        conv = Conv3x3(3, 4)
+        x = torch.rand((2, 3, 8, 6))
+        out = conv(x)
+        want = F.conv2d(x, conv.weight, padding=1)
+    assert conv.weight.is_inference() and conv._hwio_copy is None
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **F32)

@@ -15,7 +15,13 @@ torch.library custom op.
     and no aten grid sampler;
   * under use_amp the replay against the JAX bf16 reconstruct at the bf16
     reconstruct bar (3e-2 relative L2, tests/test_torch_port_amp.py), with
-    the grid reaching the op in f32.
+    the grid reaching the op in f32;
+  * `torch.library.opcheck` of `san::conv3x3` in f32, with and without
+    gradients, and the op on fake CUDA tensors; `export_reconstruct` with
+    the nets' conv route engaged holds the op once for each ConvBlock conv
+    and replays the live path. (This PyTorch, built for the CPU, cannot
+    copy or index fake CUDA tensors, so the route is engaged on CPU
+    tensors there: the export traces them as fake tensors alike.)
 """
 
 import os
@@ -36,7 +42,9 @@ from spatialalignmentnetwork_tpu_torch.engine.csmodel import CSModel
 from spatialalignmentnetwork_tpu_torch.engine.export import (
     export_reconstruct, load_exported,
 )
+from spatialalignmentnetwork_tpu_torch.kernels import conv as kconv
 from spatialalignmentnetwork_tpu_torch.kernels import grid_sample as kgs
+from spatialalignmentnetwork_tpu_torch.models.layers import Conv3x3
 from tests.test_torch_port_serve import _batch, tiny_cfg
 
 torch.set_num_threads(2)
@@ -44,6 +52,7 @@ LIVE = dict(rtol=1e-5, atol=1e-6)  # the replay against the live path
 SERVE = dict(rtol=1e-3, atol=1e-4)  # the port against the JAX package
 RECON_BAR = 3e-2  # bf16 reconstruct, relative L2 (tests/test_torch_port_amp.py)
 OP = "san.grid_sample_fwd.default"
+CONV_OP = "san.conv3x3.default"
 
 
 def _targets(program):
@@ -175,3 +184,61 @@ def test_use_amp_export_keeps_the_f32_grid(tmp_path):
     want = np.asarray(jm.reconstruct(full, aux))
     err = float(np.linalg.norm(got.numpy() - want) / np.linalg.norm(want))
     assert err <= RECON_BAR, f"bf16 replay {err:.3g} from JAX's > {RECON_BAR}"
+
+
+# ------------------------------------------------------------ the conv route's op
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_conv3x3_opcheck(requires_grad):
+    """Schema, autograd registration, fake tensors and AOT dispatch
+    (eager against AOTAutograd's trace, forward and backward) of
+    `san::conv3x3` in f32."""
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 4, 3)).astype(np.float32))
+    w3 = torch.from_numpy((rng.standard_normal((3, 3, 3, 5)) * 0.2).astype(np.float32))
+    torch.library.opcheck(kconv.conv3x3_op, (x.requires_grad_(requires_grad),
+                                             w3.requires_grad_(requires_grad)),
+                          test_utils=["test_schema", "test_autograd_registration",
+                                      "test_faketensor", "test_aot_dispatch_dynamic"])
+
+
+def test_conv3x3_on_fake_cuda_tensors_traces_without_a_pointer(monkeypatch):
+    """The op on fake CUDA tensors, as torch.export traces it on the card:
+    a fake CUDA [N, H, W, Cout] f32 result, and no kernel built, loaded or
+    launched, nor a pointer read."""
+    def refuse(*args):
+        raise AssertionError("a kernel was built or launched while tracing")
+
+    monkeypatch.setattr(kernels, "build", refuse)
+    monkeypatch.setattr(kconv, "load", refuse)
+    monkeypatch.setattr(kconv, "launch", refuse)
+    kernels.reset_launches()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # "Accessing the data pointer of FakeTensor"
+        with FakeTensorMode():
+            x = torch.empty((2, 16, 12, 18), device="cuda")
+            w3 = torch.empty((3, 3, 18, 7), device="cuda")
+            out = kconv.conv3x3_s2d(x, w3)
+            assert out.device.type == "cuda"
+            assert tuple(out.shape) == (2, 16, 12, 7) and out.dtype == torch.float32
+    assert not kernels.LAUNCHES
+
+
+def test_export_with_the_conv_route_holds_the_op_once_a_conv(saved_jax_model, monkeypatch):
+    """With the route engaged (forced on CPU tensors, where it otherwise
+    stays off), the exported recon step holds `san::conv3x3` once for each
+    ConvBlock conv of net_R (both U-Nets), and its replay gives the live
+    path's output; both within f32 rounding of the unrouted path."""
+    _, path = saved_jax_model
+    tm = CSModel(ckpt=path, device="cpu")
+    full, aux = _batch(seed=10)
+    unrouted = tm.reconstruct(full, aux)
+    monkeypatch.setattr(Conv3x3, "routed", lambda self, x: True)
+    routed = sum(isinstance(m, Conv3x3) for m in tm.net_R.modules())
+    assert routed == 12  # 2 U-Nets of 1 pool: 3 ConvBlocks each
+    fn = load_exported(export_reconstruct(tm, full.shape))
+    targets = _targets(fn)
+    assert targets.count(CONV_OP) == routed and targets.count(OP) == 1
+    live = tm.reconstruct(full, aux)
+    got = fn(torch.from_numpy(full), torch.from_numpy(aux))
+    np.testing.assert_allclose(got.numpy(), live.numpy(), **LIVE)
+    np.testing.assert_allclose(live.numpy(), unrouted.numpy(), rtol=1e-4, atol=1e-5)
